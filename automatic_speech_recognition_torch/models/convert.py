@@ -1,0 +1,126 @@
+"""Carry weights from the JAX package's pytrees into the port's LAS.
+
+`from_jax_params` takes the nested dicts that
+automatic_speech_recognition_tpu.models.las.las_init returns (params and
+BN state), with every leaf a NumPy array, and loads them.  Layouts:
+dense (in, out) -> Linear (out, in); conv HWIO -> OIHW; a BiRNN cell's
+fused (D + U, U) kernel -> nn.RNN weight_ih = w[:D].T, weight_hh = w[D:].T,
+bias_ih = b, bias_hh = 0; location conv (K, 1, C) -> (C, 1, K).  A missing
+or extra key, or a wrong shape, raises.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from automatic_speech_recognition_tpu.config import Config
+
+from . import las
+
+_Target = List[Tuple[torch.Tensor, Callable[[np.ndarray], np.ndarray]]]
+
+
+def _same(a):
+    return a
+
+
+def _t(a):
+    return a.T
+
+
+def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _dense(targets, path: str, m: nn.Linear) -> None:
+    targets[f"{path}/w"] = [(m.weight, _t)]
+    if m.bias is not None:
+        targets[f"{path}/b"] = [(m.bias, _same)]
+
+
+def _birnn(targets, path: str, rnn: nn.RNN) -> None:
+    D = rnn.input_size
+    for d, sfx in (("fw", ""), ("bw", "_reverse")):
+        targets[f"{path}/{d}/w"] = [
+            (getattr(rnn, f"weight_ih_l0{sfx}"), lambda a: a[:D].T),
+            (getattr(rnn, f"weight_hh_l0{sfx}"), lambda a: a[D:].T)]
+        targets[f"{path}/{d}/b"] = [(getattr(rnn, f"bias_ih_l0{sfx}"), _same)]
+
+
+def _bn(targets, path: str, bn) -> None:
+    targets[f"params/{path}/scale"] = [(bn.scale, _same)]
+    targets[f"params/{path}/bias"] = [(bn.bias, _same)]
+    targets[f"state/{path}/mean"] = [(bn.mean, _same)]
+    targets[f"state/{path}/var"] = [(bn.var, _same)]
+
+
+def _targets(model: las.LAS) -> Dict[str, _Target]:
+    """JAX path ('params/...' or 'state/...') -> port tensors to fill."""
+    t: Dict[str, _Target] = {}
+    lis, sp = model.listener, model.speller
+    for i, conv in enumerate((lis.conv0, lis.conv1)):
+        t[f"params/listener/conv{i}/w"] = [
+            (conv.weight, lambda a: a.transpose(3, 2, 0, 1))]
+        t[f"params/listener/conv{i}/b"] = [(conv.bias, _same)]
+    for i, bn in enumerate((lis.bn_conv0, lis.bn_conv1)):
+        if bn is not None:
+            _bn(t, f"listener/bn_conv{i}", bn)
+    for i, layer in enumerate(lis.layers):
+        p = f"listener/layer_{i}"
+        _birnn(t, f"params/{p}/birnn", layer.birnn)
+        _dense(t, f"params/{p}/proj", layer.proj)
+        if layer.bn_extra is not None:
+            _bn(t, f"{p}/bn_extra", layer.bn_extra)
+        _bn(t, f"{p}/bn_main", layer.bn_main)
+    t["params/speller/embedding/table"] = [(sp.embedding.weight, _same)]
+    a = sp.attention
+    for name in ("w_h", "w_s") + (("w_f",) if a.mode == "loc" else ()):
+        _dense(t, f"params/speller/attention/{name}", getattr(a, name))
+    t["params/speller/attention/u"] = [(a.u, _same)]
+    if a.mode == "loc":
+        t["params/speller/attention/conv_w"] = [
+            (a.conv_w, lambda x: x.transpose(2, 1, 0))]
+        t["params/speller/attention/conv_b"] = [(a.conv_b, _same)]
+    _dense(t, "params/speller/out", sp.out)
+    for l, cell in enumerate(sp.cells):
+        _dense(t, f"params/speller/cell_{l}", cell)
+    if sp.ctc_head is not None:
+        _dense(t, "params/speller/ctc_head", sp.ctc_head)
+    return t
+
+
+@torch.no_grad()
+def from_jax_params(params_np: Dict, bn_state_np: Dict, cfg: Config,
+                    device: torch.device) -> las.LAS:
+    """The port's LAS holding the given JAX params and BN state."""
+    model = las.LAS(cfg)
+    targets = _targets(model)
+    given = {**_flatten(params_np, "params"), **_flatten(bn_state_np, "state")}
+    missing = sorted(set(targets) - set(given))
+    extra = sorted(set(given) - set(targets))
+    if missing or extra:
+        raise KeyError(f"JAX pytree does not match the port's LAS: "
+                       f"missing {missing}, unexpected {extra}")
+    for path, fills in targets.items():
+        for tensor, fn in fills:
+            arr = np.array(fn(given[path]), dtype=np.float32, order="C")
+            if arr.shape != tuple(tensor.shape):
+                raise ValueError(f"{path}: shape {given[path].shape} maps to "
+                                 f"{arr.shape}, expected "
+                                 f"{tuple(tensor.shape)}")
+            tensor.copy_(torch.from_numpy(arr))
+    for layer in model.listener.layers:
+        layer.birnn.bias_hh_l0.zero_()
+        layer.birnn.bias_hh_l0_reverse.zero_()
+    return model.to(device).eval()

@@ -1,0 +1,89 @@
+"""Boundaries of the PyTorch port: it never imports JAX, never hands back
+the CPU for a requested GPU, chip_smoke.py refuses to run without CUDA or
+outside the repository, and the kernel build targets sm_90a into a
+git-ignored directory."""
+
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import automatic_speech_recognition_torch as port
+from automatic_speech_recognition_torch.ops import _kernels
+
+REPO = Path(__file__).resolve().parent.parent
+NO_CUDA = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+
+
+def _run(code_or_args, cwd=REPO, env=None):
+    args = ([sys.executable, "-c", code_or_args]
+            if isinstance(code_or_args, str) else code_or_args)
+    return subprocess.run(args, cwd=cwd, env=env or NO_CUDA,
+                          capture_output=True, text=True, timeout=240)
+
+
+def test_every_port_module_imports_without_jax():
+    names = [m.name for m in pkgutil.walk_packages(port.__path__,
+                                                   port.__name__ + ".")]
+    assert "automatic_speech_recognition_torch.ops.cuda_frontend" in names
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            f"for n in {names!r}:\n"
+            "    importlib.import_module(n)\n"
+            "import chip_smoke\n"
+            "assert not any(m == 'jax' or m.startswith('jax.')\n"
+            "               for m in sys.modules if sys.modules[m])\n"
+            "print('ok', len(sys.modules))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_resolve_device_never_falls_back_to_the_cpu():
+    code = ("from automatic_speech_recognition_torch.utils.device import "
+            "resolve_device\n"
+            "assert resolve_device('cpu').type == 'cpu'\n"
+            "try:\n"
+            "    resolve_device('cuda')\n"
+            "except RuntimeError as e:\n"
+            "    print('raised:', e)\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "raised: device 'cuda' requested but CUDA is not available" \
+        in proc.stdout
+
+
+def test_chip_smoke_fails_without_cuda_and_prints_no_result():
+    proc = _run([sys.executable, "chip_smoke.py"])
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "CUDA is not available" in proc.stderr
+
+
+def test_chip_smoke_fails_outside_the_repository(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = _run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                env={**env, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_kernel_build_targets_sm90a_into_an_ignored_directory(tmp_path):
+    cmd = _kernels.nvcc_command(_kernels.CSRC_DIR / "fused_frontend.cu",
+                                _kernels.library_path("fused_frontend"))
+    i = cmd.index("-gencode")
+    assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
+    assert {"-shared", "-O3"} <= set(cmd)
+    assert _kernels.library_path("fused_frontend").parent == \
+        _kernels.BUILD_DIR
+    # git's own matcher on the repository's .gitignore, in a scratch repo
+    # (the checkout under test need not be a git work tree)
+    shutil.copy(REPO / ".gitignore", tmp_path / ".gitignore")
+    subprocess.run(["git", "init", "-q"], cwd=tmp_path, check=True)
+    rel = _kernels.BUILD_DIR.relative_to(REPO) / "fused_frontend-0.so"
+    proc = subprocess.run(["git", "check-ignore", "-q", "--no-index",
+                           str(rel)], cwd=tmp_path)
+    assert proc.returncode == 0, f"{rel} is not git-ignored"

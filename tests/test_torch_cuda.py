@@ -1,0 +1,95 @@
+"""The port's CUDA paths on an NVIDIA GPU; every test here skips without
+one.  The file imports no JAX, so it also runs where JAX is absent:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(--noconftest: tests/conftest.py imports JAX to pin it to the CPU.)
+The fused frontend kernel is held to its plain PyTorch version at
+rtol 1e-4 / atol 2e-4, the tolerance tests/test_pallas_frontend.py holds
+the TPU kernel to (float32 sums in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from automatic_speech_recognition_tpu.config import Config
+from automatic_speech_recognition_tpu.utils.tokenizer import CharEncoder
+from automatic_speech_recognition_torch.api import Recognizer
+from automatic_speech_recognition_torch.models import las
+from automatic_speech_recognition_torch.ops import cuda_frontend
+from automatic_speech_recognition_torch.ops import frontend
+
+RTOL, ATOL = 1e-4, 2e-4
+SR = 16000
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel)")
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    prev = mm.allow_tf32, cudnn.allow_tf32
+    mm.allow_tf32 = cudnn.allow_tf32 = False   # full float32 reference
+    yield torch.device("cuda")
+    mm.allow_tf32, cudnn.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seconds", [1, 10, 32])
+@pytest.mark.parametrize("apply_cmvn", [True, False])
+@pytest.mark.parametrize("feat_type", ["mfcc", "fbank"])
+def test_kernel_matches_plain(cuda, feat_type, apply_cmvn, seconds):
+    rng = np.random.default_rng(seconds)
+    S = SR * seconds
+    audio = torch.from_numpy(
+        (rng.standard_normal((8, S)) * 0.1).astype(np.float32)).to(cuda)
+    # full rows, one at half length, one sub-frame row (featlen 0)
+    audiolen = torch.tensor([S] * 6 + [S // 2, 300], device=cuda)
+    kw = dict(feat_dim=13, feat_type=feat_type, apply_cmvn=apply_cmvn)
+    before = cuda_frontend.fused_frontend.launches
+    fk, lk = frontend.extract_features(audio, audiolen, use_kernel=True,
+                                       **kw)
+    assert cuda_frontend.fused_frontend.launches == before + 1
+    fp, lp = frontend.extract_features(audio, audiolen, **kw)
+    torch.testing.assert_close(lk, lp, rtol=0, atol=0)
+    torch.testing.assert_close(fk, fp, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    a = torch.zeros((2, SR), device=cuda)
+    fl = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    kw = dict(flen=400, fstride=160, fft_length=512, feat_dim=13,
+              feat_type="mfcc", num_mel_filters=40, sample_rate=SR,
+              frames_max=97, apply_cmvn=True)
+    for bad_a, bad_fl in ((a.double(), fl), (a[:, ::2], fl),
+                          (a, fl.long()), (a, fl.cpu()), (a, fl[:1])):
+        with pytest.raises(ValueError):
+            cuda_frontend.fused_frontend(bad_a, bad_fl, **kw)
+    with pytest.raises(ValueError, match="feat_dim"):
+        cuda_frontend.fused_frontend(a, fl, **{**kw, "feat_dim": 300})
+
+
+@pytest.mark.cuda
+def test_recognizer_features_on_cuda_match_cpu(cuda):
+    cfg = Config(unit="char", vocab_size=30, feat_dim=13, enc_units=32,
+                 num_enc_channels=4, num_enc_layers=2, dec_units=32,
+                 num_dec_layers=2, embedding_size=16, attention_size=16,
+                 mode="loc", convert_rate=0.12)
+    recs = [Recognizer(las.init(cfg, torch.Generator().manual_seed(0),
+                                torch.device("cpu")), cfg, CharEncoder(), d)
+            for d in ("cpu", cuda)]
+    rng = np.random.default_rng(0)
+    sigs = [(rng.standard_normal(int(SR * s)) * 0.1).astype(np.float32)
+            for s in (0.5, 1.3, 2.0)]
+    (fc, lc), (fg, lg) = (r._features(sigs) for r in recs)
+    torch.testing.assert_close(fg.cpu(), fc, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=0)
+    logits_c, _ = recs[0].greedy(fc, lc)
+    logits_g, _ = recs[1].greedy(fc.to(cuda), lc.to(cuda))
+    # same features in: the model alone, float32 on both devices
+    torch.testing.assert_close(logits_g[:, 0].cpu(), logits_c[:, 0],
+                               rtol=1e-4, atol=1e-4)
+    texts = recs[1].transcribe_signals(sigs)
+    assert len(texts) == 3 and all(isinstance(t, str) for t in texts)
