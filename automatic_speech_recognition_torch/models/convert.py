@@ -1,12 +1,13 @@
-"""Carry weights from the JAX package's pytrees into the port's LAS.
+"""Carry weights between the JAX package's pytrees and the port's LAS.
 
 `from_jax_params` takes the nested dicts that
 automatic_speech_recognition_tpu.models.las.las_init returns (params and
-BN state), with every leaf a NumPy array, and loads them.  Layouts:
-dense (in, out) -> Linear (out, in); conv HWIO -> OIHW; a BiRNN cell's
-fused (D + U, U) kernel -> nn.RNN weight_ih = w[:D].T, weight_hh = w[D:].T,
-bias_ih = b, bias_hh = 0; location conv (K, 1, C) -> (C, 1, K).  A missing
-or extra key, or a wrong shape, raises.
+BN state), with every leaf a NumPy array, and loads them; `to_jax_params`
+is its inverse.  Layouts: dense (in, out) <-> Linear (out, in); conv HWIO
+<-> OIHW; a BiRNN cell's fused (D + U, U) kernel <-> nn.RNN weight_ih =
+w[:D].T, weight_hh = w[D:].T, bias_ih = b (bias_hh is a zero buffer);
+location conv (K, 1, C) <-> (C, 1, K).  A missing or extra key, or a wrong
+shape, raises.
 """
 
 from __future__ import annotations
@@ -32,6 +33,23 @@ def _t(a):
     return a.T
 
 
+def _hwio_to_oihw(a):
+    return a.transpose(3, 2, 0, 1)
+
+
+def _oihw_to_hwio(a):
+    return a.transpose(2, 3, 1, 0)
+
+
+def _flip3(a):
+    """(K, 1, C) <-> (C, 1, K)."""
+    return a.transpose(2, 1, 0)
+
+
+_INVERSE = {_same: _same, _t: _t, _hwio_to_oihw: _oihw_to_hwio,
+            _flip3: _flip3}
+
+
 def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
     out = {}
     for k, v in tree.items():
@@ -41,6 +59,10 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
         else:
             out[path] = np.asarray(v)
     return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
 
 
 def _dense(targets, path: str, m: nn.Linear) -> None:
@@ -58,6 +80,17 @@ def _birnn(targets, path: str, rnn: nn.RNN) -> None:
         targets[f"{path}/{d}/b"] = [(getattr(rnn, f"bias_ih_l0{sfx}"), _same)]
 
 
+def _leaf(fills: _Target) -> np.ndarray:
+    """The JAX leaf rebuilt from the port tensors it fills: a BiRNN
+    kernel is the row concat of its two transposed halves; every other
+    map is a transpose with a known inverse."""
+    if len(fills) == 2:
+        (w_ih, _), (w_hh, _) = fills
+        return np.concatenate([_np(w_ih).T, _np(w_hh).T], 0)
+    (tensor, fn), = fills
+    return _INVERSE[fn](_np(tensor))
+
+
 def _bn(targets, path: str, bn) -> None:
     targets[f"params/{path}/scale"] = [(bn.scale, _same)]
     targets[f"params/{path}/bias"] = [(bn.bias, _same)]
@@ -71,7 +104,7 @@ def _targets(model: las.LAS) -> Dict[str, _Target]:
     lis, sp = model.listener, model.speller
     for i, conv in enumerate((lis.conv0, lis.conv1)):
         t[f"params/listener/conv{i}/w"] = [
-            (conv.weight, lambda a: a.transpose(3, 2, 0, 1))]
+            (conv.weight, _hwio_to_oihw)]
         t[f"params/listener/conv{i}/b"] = [(conv.bias, _same)]
     for i, bn in enumerate((lis.bn_conv0, lis.bn_conv1)):
         if bn is not None:
@@ -90,7 +123,7 @@ def _targets(model: las.LAS) -> Dict[str, _Target]:
     t["params/speller/attention/u"] = [(a.u, _same)]
     if a.mode == "loc":
         t["params/speller/attention/conv_w"] = [
-            (a.conv_w, lambda x: x.transpose(2, 1, 0))]
+            (a.conv_w, _flip3)]
         t["params/speller/attention/conv_b"] = [(a.conv_b, _same)]
     _dense(t, "params/speller/out", sp.out)
     for l, cell in enumerate(sp.cells):
@@ -120,7 +153,24 @@ def from_jax_params(params_np: Dict, bn_state_np: Dict, cfg: Config,
                                  f"{arr.shape}, expected "
                                  f"{tuple(tensor.shape)}")
             tensor.copy_(torch.from_numpy(arr))
-    for layer in model.listener.layers:
-        layer.birnn.bias_hh_l0.zero_()
-        layer.birnn.bias_hh_l0_reverse.zero_()
     return model.to(device).eval()
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        *parents, name = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[name] = leaf
+    return tree
+
+
+def to_jax_params(model: las.LAS) -> Tuple[Dict, Dict]:
+    """(params, bn_state): the model's weights and BN statistics as the
+    JAX package's NumPy pytrees, the inverse of from_jax_params."""
+    flat = {path: np.ascontiguousarray(_leaf(fills), dtype=np.float32)
+            for path, fills in _targets(model).items()}
+    tree = _unflatten(flat)
+    return tree["params"], tree["state"]

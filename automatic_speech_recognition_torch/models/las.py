@@ -1,32 +1,47 @@
-"""Listen, Attend and Spell, inference (counterpart of
+"""Listen, Attend and Spell (counterpart of
 automatic_speech_recognition_tpu/models/las.py).
 
 - Listener 'cnn': 2 stride-2 SAME convs (time/4, feat/4) + ReLU, flatten
-  (B, T, Dr, C) with C fastest, then N x {BiRNN -> proj -> BN -> ReLU}
-  (an extra BN per layer and after each conv when cfg.apply_bn).  Lengths
-  follow ceil_half twice.
+  (B, T, Dr, C) with C fastest, then N x {dropout -> BiRNN -> proj -> BN ->
+  ReLU} (an extra BN per layer and after each conv when cfg.apply_bn).
+  Lengths follow ceil_half twice.
 - Speller: embedding, stacked tanh RNN cells, additive or location-aware
   attention whose query is the concat of ALL layer states in layer order,
-  output dense.  Greedy: <SOS> (id 1) feeds the first step, states and the
-  first alignment are zero, the argmax feeds the next step.
+  output dense.  <SOS> (id 1) feeds the first step; states and the first
+  alignment are zero.  Greedy inference feeds the argmax back; training
+  feeds the teacher's y_t into step t + 1, or, under scheduled sampling,
+  one batch-level coin per step (tf_rate > U(0, 1)) picks the teacher or
+  a sample of the step's own distribution.  The fed embedding takes
+  dropout and, with cfg.add_vn, variational noise per lookup.
+- Losses: masked label-smoothed CE (eps 0.01) and the optional CTC (blank
+  = vocab_size), with the JAX package's LR and tf-rate schedules.
 
-float32 only; 'pblstm', bf16 compute_cast and the training branch
-(teacher forcing, scheduled sampling, dropout) are not ported yet.
+Training branches are chosen by an explicit is_training, never by
+nn.Module.training (cuDNN's RNN backward needs train mode); randomness
+comes from an explicit torch.Generator.  float32 only: 'pblstm' and bf16
+compute_cast are not ported.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from automatic_speech_recognition_tpu.config import Config
-from automatic_speech_recognition_tpu.utils.tokenizer import SOS_ID
+from automatic_speech_recognition_tpu.utils.tokenizer import PAD_ID, SOS_ID
 
 from ..ops import attention as att
 from ..ops import layers as L
+
+# new BN moving statistics by module name under the model ("listener....")
+BNState = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+# optax.ctc_loss's log(+0): an infeasible alignment costs about -LOG_EPSILON
+LOG_EPSILON = -1e5
 
 
 def ceil_half(x):
@@ -51,11 +66,14 @@ class ListenerLayer(nn.Module):
         self.bn_extra = L.BatchNorm(units) if apply_bn else None
         self.bn_main = L.BatchNorm(units)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, is_training: bool = False
+                ) -> Tuple[torch.Tensor, BNState]:
         x = self.proj(L.birnn_apply(self.birnn, x))
+        state: BNState = {}
         if self.bn_extra is not None:
-            x = self.bn_extra(x)
-        return torch.relu(self.bn_main(x))
+            x, state["bn_extra"] = self.bn_extra.normalize(x, is_training)
+        x, state["bn_main"] = self.bn_main.normalize(x, is_training)
+        return torch.relu(x), state
 
 
 class Listener(nn.Module):
@@ -76,19 +94,33 @@ class Listener(nn.Module):
 
     def forward(self, audio: torch.Tensor, audiolen: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Inference: (enc_out (B, T', H), enc_len (B,))."""
+        x, audiolen, _ = self.encode(audio, audiolen)
+        return x, audiolen
+
+    def encode(self, audio: torch.Tensor, audiolen: torch.Tensor,
+               is_training: bool = False, dropout_rate: float = 0.0,
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, BNState]:
+        """(enc_out, enc_len, new BN statistics by name under the
+        listener); dropout runs before each BiRNN layer in training."""
         x = audio                                   # NHWC, 3 channels
-        for conv, bn in ((self.conv0, self.bn_conv0),
-                         (self.conv1, self.bn_conv1)):
+        state: BNState = {}
+        for i, (conv, bn) in enumerate(((self.conv0, self.bn_conv0),
+                                        (self.conv1, self.bn_conv1))):
             x = L.conv2d_apply(x, conv.weight, conv.bias, stride=2)
             if bn is not None:
-                x = bn(x)
+                x, state[f"bn_conv{i}"] = bn.normalize(x, is_training)
             x = torch.relu(x)
             audiolen = ceil_half(audiolen)
         B, T, Dr, C = x.shape
         x = x.reshape(B, T, Dr * C)
-        for layer in self.layers:
-            x = layer(x)
-        return x, audiolen
+        for i, layer in enumerate(self.layers):
+            x = L.dropout(x, dropout_rate, is_training, generator)
+            x, layer_state = layer(x, is_training)
+            state.update({f"layers.{i}.{k}": v
+                          for k, v in layer_state.items()})
+        return x, audiolen, state
 
 
 class Speller(nn.Module):
@@ -147,6 +179,74 @@ def speller_greedy(sp: Speller, enc_out, enc_len, dec_steps: int
     return torch.stack(logits, 1), torch.stack(alphas, 1)
 
 
+def scheduled_sampling_rate(cfg: Config, step) -> torch.Tensor:
+    """Teacher-forcing rate: 1.0 until warmup_step, then linear decay to
+    min_rate at max_step (float32, as the JAX package computes it)."""
+    if cfg.max_step <= cfg.warmup_step:
+        # a negative decay window would silently INVERT the schedule
+        raise ValueError(
+            f"scheduled sampling needs max_step > warmup_step, got "
+            f"warmup_step={cfg.warmup_step} max_step={cfg.max_step}")
+    step = torch.as_tensor(step, dtype=torch.float32)
+    progress = torch.clamp(
+        (step - cfg.warmup_step) / float(cfg.max_step - cfg.warmup_step),
+        max=1.0)
+    return torch.clamp(1.0 - progress * (1.0 - cfg.min_rate), max=1.0)
+
+
+def speller_train(sp: Speller, cfg: Config, enc_out, enc_len,
+                  teacher: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  tf_rate: Union[float, torch.Tensor] = 1.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training decoder over teacher.shape[1] steps.  Returns logits
+    (B, steps, V) and alphas (B, steps, T_enc).
+
+    A float tf_rate >= 1.0 is pure teacher forcing; any other value (a
+    tensor from scheduled_sampling_rate) draws the batch-level coin every
+    step.  With cfg.remat each decoder step is recomputed in the backward
+    pass instead of keeping its activations."""
+    B, T_enc, _ = enc_out.shape
+    dev = enc_out.device
+    sampling = not (isinstance(tf_rate, float) and tf_rate >= 1.0)
+    if generator is None and (sampling or cfg.dropout_rate > 0
+                              or cfg.add_vn):
+        # reusing fixed masks or coins every step would train silently
+        # on the wrong distribution: refuse instead
+        raise ValueError(
+            "speller_train: a generator is required when training with "
+            "scheduled sampling, dropout, or variational noise")
+    if sampling:
+        tf_rate = torch.as_tensor(tf_rate, dtype=torch.float32, device=dev)
+    vn = generator if cfg.add_vn else None
+    table = sp.embedding.weight
+    emb = L.embedding_lookup(
+        table, torch.full((B,), SOS_ID, dtype=torch.long, device=dev), vn)
+    states = enc_out.new_zeros(len(sp.cells), B, sp.out.in_features)
+    align = enc_out.new_zeros(B, T_enc)
+    h_proj = att.precompute_hidden(sp.attention, enc_out)
+    logits, alphas = [], []
+    for t in range(teacher.shape[1]):
+        if cfg.remat:
+            lg, states, align = checkpoint(
+                decode_step, sp, enc_out, enc_len, states, emb, align,
+                h_proj, use_reentrant=False, preserve_rng_state=False)
+        else:
+            lg, states, align = decode_step(sp, enc_out, enc_len, states,
+                                            emb, align, h_proj)
+        ids = teacher[:, t].long()
+        if sampling:
+            coin = torch.rand((), generator=generator, device=dev)
+            sampled = torch.multinomial(torch.softmax(lg.detach(), -1), 1,
+                                        generator=generator)[:, 0]
+            ids = torch.where(tf_rate > coin, ids, sampled)
+        emb = L.dropout(L.embedding_lookup(table, ids, vn),
+                        cfg.dropout_rate, True, generator)
+        logits.append(lg)
+        alphas.append(align)
+    return torch.stack(logits, 1), torch.stack(alphas, 1)
+
+
 class LAS(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
@@ -161,6 +261,120 @@ class LAS(nn.Module):
         logits, alphas = speller_greedy(self.speller, enc_out, enc_len,
                                         dec_steps)
         return logits, alphas, enc_len
+
+
+def las_forward(model: LAS, audio, audiolen, cfg: Config, dec_steps: int,
+                teacher: Optional[torch.Tensor] = None,
+                is_training: bool = True,
+                generator: Optional[torch.Generator] = None,
+                tf_rate: Union[float, torch.Tensor] = 1.0):
+    """Full encoder-decoder forward.  Returns (logits, ctc_logits, alphas,
+    enc_len, new BN state); ctc_logits is None without cfg.ctc.  Training
+    runs the teacher's first dec_steps tokens; inference is greedy."""
+    enc_out, enc_len, lstate = model.listener.encode(
+        audio, audiolen, is_training, cfg.dropout_rate, generator)
+    sp = model.speller
+    ctc_logits = sp.ctc_head(enc_out) if sp.ctc_head is not None else None
+    if is_training:
+        logits, alphas = speller_train(sp, cfg, enc_out, enc_len,
+                                       teacher[:, :dec_steps], generator,
+                                       tf_rate)
+    else:
+        logits, alphas = speller_greedy(sp, enc_out, enc_len, dec_steps)
+    state = {f"listener.{k}": v for k, v in lstate.items()}
+    return logits, ctc_logits, alphas, enc_len, state
+
+
+@torch.no_grad()
+def assign_bn_state(model: LAS, state: BNState) -> None:
+    """Write new BN moving statistics (from las_forward) into the model."""
+    for name, (mean, var) in state.items():
+        bn = model.get_submodule(name)
+        bn.mean.copy_(mean)
+        bn.var.copy_(var)
+
+
+def label_smoothing(one_hot: torch.Tensor, epsilon: float = 0.01
+                    ) -> torch.Tensor:
+    """(1 - eps) y + eps / K."""
+    return (1.0 - epsilon) * one_hot + epsilon / one_hot.shape[-1]
+
+
+def attention_loss(logits: torch.Tensor, y: torch.Tensor,
+                   cfg: Config) -> torch.Tensor:
+    """Label-smoothed CE averaged over non-PAD positions.  A written-out
+    masked sum: cross_entropy(ignore_index=PAD) is NaN on an all-PAD
+    batch, this is 0."""
+    y = y[:, :logits.shape[1]].long()
+    target = F.one_hot(y, cfg.vocab_size).to(logits.dtype)
+    if cfg.label_smoothing:
+        target = label_smoothing(target)
+    ce = -(target * torch.log_softmax(logits, -1)).sum(-1)
+    mask = (y != PAD_ID).to(logits.dtype)
+    return (ce * mask).sum() / (mask.sum() + 1e-9)
+
+
+def ctc_loss(ctc_logits: torch.Tensor, y: torch.Tensor, enc_len: torch.Tensor,
+             cfg: Config) -> torch.Tensor:
+    """Mean per-utterance CTC NLL over encoder frames, blank = vocab_size,
+    labels right-padded with PAD.
+
+    optax.ctc_loss, which the JAX package uses, floors log(0) at
+    LOG_EPSILON, so an utterance whose labels need more frames than it has
+    (labels + adjacent repeats > enc_len) costs about 1e5 there, where
+    F.ctc_loss gives inf and a NaN gradient.  Such rows score
+    -LOG_EPSILON here, with no gradient; they go through F.ctc_loss with
+    an empty target only so that its backward stays finite.
+    cfg.ctc_compat_drop_last drops the batch's last non-PAD label in
+    row-major order (the reference's sparse-index off-by-one)."""
+    T = ctc_logits.shape[1]
+    if cfg.ctc_compat_drop_last:
+        flat = y.reshape(-1)
+        pos = torch.arange(flat.numel(), device=y.device)
+        last = torch.where(flat != PAD_ID, pos, -1).max()  # -1: all PAD
+        y = torch.where(pos == last, PAD_ID, flat).reshape(y.shape)
+    y = y.long()
+    nonpad = y != PAD_ID
+    label_len = nonpad.sum(1)
+    repeats = ((y[:, 1:] == y[:, :-1]) & nonpad[:, 1:]).sum(1)
+    in_len = enc_len.long().clamp(max=T)
+    feasible = label_len + repeats <= in_len
+    nll = F.ctc_loss(torch.log_softmax(ctc_logits, -1).transpose(0, 1), y,
+                     in_len, torch.where(feasible, label_len, 0),
+                     blank=cfg.vocab_size, reduction="none")
+    return torch.where(feasible, nll, -LOG_EPSILON).mean()
+
+
+def total_loss(model: LAS, batch, cfg: Config, dec_steps: int,
+               generator: Optional[torch.Generator], step: int):
+    """Training loss.  Returns (loss, (logits, alphas, new BN state))."""
+    audio, audiolen, y, _ = batch
+    if cfg.spec_augment:
+        raise NotImplementedError(
+            "spec_augment is not ported yet (ROADMAP item 5)")
+    tf_rate = (scheduled_sampling_rate(cfg, step)
+               if cfg.scheduled_sampling else 1.0)
+    logits, ctc_logits, alphas, enc_len, state = las_forward(
+        model, audio, audiolen, cfg, dec_steps, teacher=y, is_training=True,
+        generator=generator, tf_rate=tf_rate)
+    loss = attention_loss(logits, y, cfg)
+    if cfg.ctc:
+        loss = loss + cfg.ctc_weight * ctc_loss(ctc_logits, y, enc_len, cfg)
+    return loss, (logits, alphas, state)
+
+
+def scheduled_learning_rate(cfg: Config, step) -> torch.Tensor:
+    """lr, halved every lr_decay_step steps after lr_decay_start, floored
+    at lr_min_ratio * lr (float32, as the JAX package computes it)."""
+    step = torch.as_tensor(step, dtype=torch.float32)
+    decayed = cfg.lr * cfg.lr_decay_rate ** (
+        torch.clamp(step - cfg.lr_decay_start, min=0.0) / cfg.lr_decay_step)
+    return torch.clamp(decayed, min=cfg.lr_min_ratio * cfg.lr)
+
+
+def num_params(model: nn.Module) -> int:
+    """Trainable parameter count (the JAX pytree's leaf sizes)."""
+    return sum(p.numel() for p in model.parameters() if p.requires_grad)
 
 
 @torch.no_grad()
@@ -184,7 +398,7 @@ def init(cfg: Config, generator: torch.Generator,
                 if name.startswith("weight"):
                     L.glorot_uniform_(w, fan_in, fan_out, g)
                 else:
-                    w.zero_()
+                    w.zero_()           # bias_ih; bias_hh is a zero buffer
         elif isinstance(m, nn.Conv2d):
             m.weight.copy_(torch.randn(m.weight.shape, generator=g) * 0.01)
             m.bias.fill_(0.01)

@@ -7,7 +7,8 @@ c0 = log energy (mfcc) or mel energies (fbank) -> masked per-utterance CMVN
 (B, T, D) raw features (cmvn off), with the speechpy semantics the JAX
 package pins.  This is the path for CPU tensors and the reference the CUDA
 kernel (ops/cuda_frontend.py) is held against; `extract_features_cfg`
-sends CUDA tensors to the kernel when `cfg.use_pallas` is set.
+and `featurize_batch` (the train step over raw-audio shards) send CUDA
+tensors to the kernel when `cfg.use_pallas` is set.
 """
 
 from __future__ import annotations
@@ -189,3 +190,19 @@ def extract_features_cfg(audio: torch.Tensor, audiolen: torch.Tensor, cfg,
         feat_type=cfg.feat_type, apply_cmvn=cfg.cmvn,
         fft_length=cfg.fft_length, num_mel_filters=cfg.num_mel_filters,
         frames_max=frames_max, use_kernel=cfg.use_pallas)
+
+
+def featurize_batch(sig: torch.Tensor, siglen: torch.Tensor, cfg
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A loader batch of raw waveforms, (B, S, 1, 1) or (B, S), -> the
+    feature batch the model takes, (B, T, D, 3) with CMVN or (B, T, D, 1)
+    raw, and frame counts floored at 1 (as the feature pipeline pads a
+    sub-frame row to one zeroed frame).  T follows S.  The fused kernel
+    runs on a CUDA tensor when cfg.use_pallas is set; the waveform takes
+    no gradient, so the kernel needs no backward."""
+    if sig.dim() == 4:
+        sig = sig[:, :, 0, 0]
+    feat, featlen = extract_features_cfg(sig, siglen.to(torch.int32), cfg)
+    if feat.dim() == 3:                  # no CMVN: one channel
+        feat = feat[..., None]
+    return feat, featlen.clamp(min=1)

@@ -1,5 +1,5 @@
 """Layer functions in plain PyTorch (counterpart of
-automatic_speech_recognition_tpu/ops/layers.py), inference only.
+automatic_speech_recognition_tpu/ops/layers.py).
 
 Weights are in PyTorch's layouts (Linear (out, in), Conv2d OIHW, nn.RNN);
 JAX's dense_apply is nn.Linear.  Activations keep the JAX package's
@@ -12,14 +12,22 @@ purpose:
   sequence reversed (no sequence lengths), as nn.RNN does unpacked;
 - conv2d: 3x3, stride 2, TF 'SAME' padding, which pads (0, 1) on an even
   length and (1, 1) on an odd one;
-- batch norm at inference: (x - mean) * rsqrt(var + 1e-3) * scale + bias
-  over the last axis, from the stored moving statistics.
+- batch norm over the last axis: (x - mean) * rsqrt(var + 1e-3) * scale +
+  bias, from the stored moving statistics at inference; in training from
+  the batch's (all axes but the last, padded positions included, biased
+  variance, float32), with the moving update 0.99 old + 0.01 batch;
+- dropout is inverted dropout; the embedding's variational noise is
+  0.075 N(0, 1) over the whole table per lookup.
+
+Randomness comes from an explicit torch.Generator on the tensor's device:
+a stochastic function given none is a no-op, as a JAX function given no
+key is.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,8 +40,15 @@ def glorot_uniform_(weight: torch.Tensor, fan_in: int, fan_out: int,
     return weight.uniform_(-limit, limit, generator=generator)
 
 
-def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Row lookup (no variational noise: inference)."""
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     vn_std: float = 0.075) -> torch.Tensor:
+    """Row lookup; with a generator, variational noise vn_std * N(0, 1) is
+    added to the whole table first."""
+    if generator is not None:
+        table = table + vn_std * torch.randn(
+            table.shape, generator=generator, device=table.device,
+            dtype=table.dtype)
     return F.embedding(ids, table)
 
 
@@ -45,9 +60,16 @@ def rnn_cell_apply(cell: nn.Linear, x: torch.Tensor,
 
 def make_birnn(in_dim: int, units: int) -> nn.RNN:
     """Bidirectional tanh RNN.  The JAX cell's single bias is bias_ih;
-    bias_hh stays zero."""
-    return nn.RNN(in_dim, units, nonlinearity="tanh", batch_first=True,
-                  bidirectional=True)
+    nn.RNN's second bias, bias_hh, is turned into a zero buffer: as a
+    parameter it would take the same gradient as bias_ih and the
+    optimizer would move the effective bias twice per step."""
+    rnn = nn.RNN(in_dim, units, nonlinearity="tanh", batch_first=True,
+                 bidirectional=True)
+    for name in ("bias_hh_l0", "bias_hh_l0_reverse"):
+        delattr(rnn, name)
+        rnn.register_buffer(name, torch.zeros(units))
+    rnn._init_flat_weights()         # re-read the weight list nn.RNN runs
+    return rnn
 
 
 def birnn_apply(rnn: nn.RNN, xs: torch.Tensor) -> torch.Tensor:
@@ -81,6 +103,36 @@ def bn_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
+def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             mean: torch.Tensor, var: torch.Tensor, momentum: float = 0.99,
+             eps: float = 1e-3
+             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Training batch norm: normalize with the batch statistics over every
+    axis but the last (no length mask), and return the new moving
+    statistics, which carry no gradient."""
+    axes = tuple(range(x.dim() - 1))
+    xf = x.float()
+    b_var, b_mean = torch.var_mean(xf, axes, correction=0)
+    with torch.no_grad():
+        new = (momentum * mean + (1 - momentum) * b_mean,
+               momentum * var + (1 - momentum) * b_var)
+    y = (x - b_mean) * torch.rsqrt(b_var + eps) * scale + bias
+    return y, new
+
+
+def dropout(x: torch.Tensor, rate: float, is_training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate).  A no-op at inference, at rate 0 or
+    without a generator."""
+    if not is_training or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 def length_mask(lengths: torch.Tensor, padded_len: int,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(B,) -> (B, T) 1/0 mask: position p (1-based) is kept if p <= len."""
@@ -90,7 +142,10 @@ def length_mask(lengths: torch.Tensor, padded_len: int,
 
 class BatchNorm(nn.Module):
     """tf.layers.batch_normalization state: scale/bias parameters and
-    mean/var moving statistics, applied at inference."""
+    mean/var moving statistics.  `forward` is inference; `normalize`
+    takes the branch from an explicit is_training (not from
+    self.training: the model stays in train mode for cuDNN's RNN
+    backward) and returns the new statistics instead of writing them."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -101,3 +156,10 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return bn_apply(x, self.scale, self.bias, self.mean, self.var)
+
+    def normalize(self, x: torch.Tensor, is_training: bool
+                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """(y, (new mean, new var)); at inference the state is unchanged."""
+        if is_training:
+            return bn_train(x, self.scale, self.bias, self.mean, self.var)
+        return self(x), (self.mean, self.var)

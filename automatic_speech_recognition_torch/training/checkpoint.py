@@ -1,0 +1,108 @@
+"""Epoch checkpoints of the train state (counterpart of
+automatic_speech_recognition_tpu/training/checkpoint.py, same interface).
+
+One file per epoch, `<dir>/<epoch>.pt`, written by torch.save: the model's
+state dict (weights, BN moving statistics), the optimizer's state (Adam
+moments, update count, MultiSteps accumulator), the micro-step count and
+the generator's state.  A save writes `<epoch>.pt.tmp` and renames it over
+the target with os.replace, so a crash mid-save leaves the previous copy
+of that epoch whole; restore ignores the torn temp file and the next save
+replaces it.  The oldest epochs beyond max_to_keep are deleted after each
+save.  Single process: the port trains on one GPU.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from ..models import convert
+from ..models.las import LAS
+from .trainer import TrainState
+
+_NAME = re.compile(r"^(\d+)\.pt$")
+_TMP_SUFFIX = ".tmp"
+
+
+class CheckpointManager:
+    """Epoch-indexed TrainState checkpoints (the reference's `las_E{epoch}`,
+    keeping max_to_keep)."""
+
+    def __init__(self, directory: str, max_to_keep: int = 30):
+        self._dir = os.path.abspath(directory)
+        os.makedirs(self._dir, exist_ok=True)
+        self.max_to_keep = max_to_keep
+
+    def _path(self, epoch: int) -> str:
+        return os.path.join(self._dir, f"{epoch}.pt")
+
+    def save(self, epoch: int, state: TrainState, block: bool = True) -> None:
+        """Save, overwriting an existing checkpoint of the same epoch.
+        Always synchronous (`block` is kept for the interface): the state
+        is copied to the host inside torch.save."""
+        del block
+        payload = {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": state.step,
+            "generator": state.generator.get_state(),
+        }
+        tmp = self._path(epoch) + _TMP_SUFFIX
+        with open(tmp, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self._path(epoch))
+        if self.max_to_keep > 0:
+            for old in self.all_epochs()[:-self.max_to_keep]:
+                os.remove(self._path(old))
+
+    def all_epochs(self) -> List[int]:
+        """Committed epochs, ascending."""
+        return sorted(int(m.group(1)) for m in map(_NAME.match,
+                                                   os.listdir(self._dir))
+                      if m)
+
+    def latest_epoch(self) -> Optional[int]:
+        epochs = self.all_epochs()
+        return epochs[-1] if epochs else None
+
+    def _load(self, epoch: int) -> Optional[Dict]:
+        """The payload of `epoch` (-1 = latest), or None."""
+        step = self.latest_epoch() if epoch < 0 else epoch
+        if step is None or step not in self.all_epochs():
+            return None
+        return torch.load(self._path(step), map_location="cpu",
+                          weights_only=True)
+
+    def restore(self, state_like: TrainState, epoch: int = -1
+                ) -> Optional[TrainState]:
+        """Load the checkpoint into `state_like` (in place) and return it;
+        epoch -1 = latest.  None if there is nothing to restore."""
+        payload = self._load(epoch)
+        if payload is None:
+            return None
+        state_like.model.load_state_dict(payload["model"])
+        state_like.optimizer.load_state_dict(payload["optimizer"])
+        state_like.step = int(payload["step"])
+        state_like.generator.set_state(payload["generator"])
+        return state_like
+
+    def restore_for_eval(self, model_like: LAS, epoch: int = -1
+                         ) -> Optional[Tuple[Dict, Dict]]:
+        """Weights-only restore: load the weights and BN statistics into
+        `model_like` (optimizer state and generator are not read) and
+        return them as the JAX package's (params, bn_state) NumPy trees,
+        which its evaluation scripts take.  None if there is nothing to
+        restore."""
+        payload = self._load(epoch)
+        if payload is None:
+            return None
+        model_like.load_state_dict(payload["model"])
+        return convert.to_jax_params(model_like)
+
+    def close(self) -> None:
+        """Nothing is in flight: every save is synchronous."""

@@ -15,16 +15,34 @@
    2 x 1024, char vocab 30, mfcc 13 + deltas, float32, random weights
    from seed 0), checks the transcripts, the kernel's launch count and
    finite logits, and kernel vs plain frontend on one batch.
+4. Trains at the same published width over raw-audio shards (the recipe's
+   train flags: lr 1e-4, grad_clip 5, label smoothing, no scheduled
+   sampling) through the port's train.main with --audio_shards True, so
+   the fused kernel runs inside every step: synthesized speech with char
+   transcripts in three buckets, ~2 s at batch 96, ~8 s and ~16 s at
+   batch 48.  Plain and with --ctc True --ctc_weight 0.2, each 3 steps,
+   an epoch checkpoint, and a resume that must continue at step 4.
+   Checks finite losses and gradient norms, kernel launches >= steps,
+   bias_hh still zero, the loss falling over 10 steps on one repeated
+   batch, and one step from identical state with the kernel frontend vs
+   the plain one (loss rtol 1e-4, gradient norm rtol 1e-3).  Prints, per
+   bucket, ms per train step (CUDA events, median of 3), the frontend's
+   share of it, peak device memory, and the device idle share of one step
+   from a torch.profiler trace.
 
 Every phase raises on failure.  The last line is the result JSON; the
-line before it lists the kernels.  Without CUDA it exits non-zero.
+line before it lists the kernels, with the launches of the serving and
+the training runs.  Without CUDA it exits non-zero.
 """
 
 from __future__ import annotations
 
+import glob
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -32,15 +50,21 @@ import numpy as np
 import torch
 
 from automatic_speech_recognition_tpu.config import Config
+from automatic_speech_recognition_tpu.data import shards
+from automatic_speech_recognition_tpu.data.pipeline import BucketedLoader
 from automatic_speech_recognition_tpu.ops import frontend_host as host
 from automatic_speech_recognition_tpu.utils.formant_synth import (
     PHONES, synth_phones)
 from automatic_speech_recognition_tpu.utils.tokenizer import CharEncoder
+from automatic_speech_recognition_torch import train as train_cli
 from automatic_speech_recognition_torch.api import Recognizer
 from automatic_speech_recognition_torch.models import las
 from automatic_speech_recognition_torch.ops import _kernels, cuda_frontend
 from automatic_speech_recognition_torch.ops import frontend
 from automatic_speech_recognition_torch.serving import BatchingRecognizer
+from automatic_speech_recognition_torch.training import trainer
+from automatic_speech_recognition_torch.training.checkpoint import (
+    CheckpointManager)
 from automatic_speech_recognition_torch.utils.device import resolve_device
 
 SR = 16000
@@ -49,6 +73,25 @@ GOLDEN_TOL = 5e-3                # tests/test_frontend_golden.py
 BUCKETS = [2, 4, 8, 16, 32]
 KERNEL_SOURCE = "automatic_speech_recognition_torch/csrc/fused_frontend.cu"
 REPLACES = "automatic_speech_recognition_tpu/ops/pallas_frontend.py:177"
+# training buckets in frames (frames < b): padded to 2.025, 8.025 and
+# 16.025 s; the default bucket_batch_sizes give them 96, 48 and 48 rows
+TRAIN_BUCKETS = (200, 800, 1600)
+TRAIN_BATCH = Config().bucket_batch_sizes[:len(TRAIN_BUCKETS)]
+TRAIN_SECONDS = (2.0, 8.0, 16.0)
+CHARS_PER_SECOND = 11            # transcript length: CTC-feasible at /4
+OVERFIT_STEPS = 10
+# the published recipe's train flags (run.sh:17-33,88) at char units
+PUBLISHED_FLAGS = [
+    "--unit", "char", "--feat_type", "mfcc", "--feat_dim", "13",
+    "--cmvn", "True", "--enc_type", "cnn", "--num_enc_channels", "32",
+    "--enc_units", "512", "--num_enc_layers", "4", "--mode", "loc",
+    "--attention_size", "128", "--loc_kernel_size", "201",
+    "--loc_num_channels", "10", "--dec_units", "1024",
+    "--num_dec_layers", "2", "--embedding_size", "256",
+    "--dropout_rate", "0.0", "--scheduled_sampling", "False",
+    "--lr", "1e-4", "--grad_clip", "5", "--label_smoothing", "True",
+    "--dtype", "float32", "--use_pallas", "True", "--audio_shards", "True",
+    "--bucket_boundaries_train", ",".join(map(str, TRAIN_BUCKETS))]
 
 
 def published_cfg() -> Config:
@@ -279,6 +322,220 @@ def phase_serving(dev, card: str) -> int:
     return launches
 
 
+def train_cfg() -> Config:
+    """published_cfg() with the recipe's train flags, over raw audio."""
+    return published_cfg().replace(
+        audio_shards=True, lr=1e-4, grad_clip=5.0, label_smoothing=True,
+        scheduled_sampling=False, bucket_boundaries_train=TRAIN_BUCKETS)
+
+
+def write_train_shards(directory: str, rng: np.random.Generator) -> None:
+    """Two raw-audio shards, (S, 1, 1) float32 records: per bucket, 4
+    synthesized utterances repeated over its batch at 80-100 % of the
+    bucket's length, so one pass of the loader is one batch per bucket.
+    A transcript is the utterance's phone names, CHARS_PER_SECOND
+    characters a second."""
+    tok = CharEncoder()
+    names = [p for p in PHONES if p not in ("SIL", "SP")]
+    records = []
+    for seconds, batch in zip(TRAIN_SECONDS, TRAIN_BATCH):
+        pool = []
+        for _ in range(4):
+            phones = list(rng.choice(names, int(seconds * 10)))
+            text = " ".join(phones)[:int(seconds * CHARS_PER_SECOND)]
+            pool.append((synth_phones(phones, rng=rng),
+                         tok.encode(text.strip(), with_eos=True)))
+        for i in range(batch):
+            sig, ids = pool[i % 4]
+            n = int(seconds * SR * rng.uniform(0.8, 1.0))
+            records.append((np.resize(sig, n).astype(np.float32),
+                            np.asarray(ids, np.int32)))
+    order = rng.permutation(len(records))
+    for k in range(2):
+        part = [records[i] for i in order[k::2]]
+        shards.write_shard(os.path.join(directory, f"train-{k}.arsh"),
+                           [r[0][:, None, None] for r in part],
+                           [r[1] for r in part])
+
+
+def run_train_cli(shard_dir: str, save_dir: str, epoch: int,
+                  extra: list) -> int:
+    """train.main for `epoch` epochs of 3 steps; checks the run and
+    returns its fused-kernel launches."""
+    cuda_frontend.fused_frontend.launches = 0
+    ts, hist = train_cli.main(
+        PUBLISHED_FLAGS + ["--shard_dir", shard_dir, "--save_dir", save_dir,
+                           "--summary_dir", os.path.join(save_dir, "summary"),
+                           "--epoch", str(epoch)] + extra)
+    torch.cuda.synchronize()
+    launches = cuda_frontend.fused_frontend.launches
+    steps = len(hist["loss"])
+    if ts.step != 3 * epoch or steps != 3:
+        raise AssertionError(f"run to epoch {epoch} took {steps} steps and "
+                             f"ended at step {ts.step}, expected 3 steps "
+                             f"ending at {3 * epoch}")
+    if not (np.all(np.isfinite(hist["loss"]))
+            and np.all(np.isfinite(hist["grad_norm"]))):
+        raise AssertionError(f"non-finite training metrics: {hist}")
+    if launches < steps:
+        raise AssertionError(f"fused_frontend launched {launches} times in "
+                             f"{steps} steps")
+    for layer in ts.model.listener.layers:
+        rnn = layer.birnn
+        if rnn.bias_hh_l0.any() or rnn.bias_hh_l0_reverse.any():
+            raise AssertionError("bias_hh moved off zero")
+    epochs = CheckpointManager(save_dir).all_epochs()
+    if epochs != list(range(1, epoch + 1)):
+        raise AssertionError(f"checkpoints {epochs} after epoch {epoch}")
+    print(f"train.main {' '.join(extra) or '(attention only)'} to epoch "
+          f"{epoch}: steps {ts.step - steps + 1}-{ts.step}, losses "
+          f"{[round(x, 4) for x in hist['loss']]}, grad norms "
+          f"{[round(x, 4) for x in hist['grad_norm']]}, fused_frontend "
+          f"launches {launches}, checkpoints {epochs}")
+    return launches
+
+
+def device_intervals(events):
+    """The device's kernel and copy events of a profiler trace, without
+    the device-side copies of record_function ranges."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_busy(events, name: str):
+    """(busy, span) in ms from a profiler trace: the union of the device's
+    kernel and copy intervals, and the span from the start of the host
+    range `name` to the end of the last of them."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in device_intervals(events))
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
+    start = min(e.time_range.start for e in events
+                if e.name == name and e.device_type
+                == torch.autograd.DeviceType.CPU)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy / 1e3, (max(e for _, e in spans) - start) / 1e3
+
+
+def top_kernels(events, n: int = 6) -> str:
+    """Device time by kernel name, the n largest, with launch counts."""
+    total, calls = {}, {}
+    for e in device_intervals(events):
+        total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us()
+        calls[e.name] = calls.get(e.name, 0) + 1
+    top = sorted(total, key=total.get, reverse=True)[:n]
+    return "; ".join(f"{k[:60]} {total[k] / 1e3:.2f} ms x{calls[k]}"
+                     for k in top)
+
+
+def step_timings(ts, batch, cfg: Config, card: str) -> None:
+    """ms per train step (CUDA events, median of 3 after a warm-up), the
+    frontend's and the forward's share, peak memory, and the idle share
+    and top kernels of one profiled step, for one bucket's batch."""
+    dev = batch[0].device
+    B, S = batch[0].shape[:2]
+    step = lambda: trainer.train_step(ts, batch, cfg)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = [cuda_ms(step, 1) for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad():
+        fe_ms = float(np.median([
+            cuda_ms(lambda: frontend.featurize_batch(batch[0], batch[1], cfg),
+                    1) for _ in range(5)]))
+        feats = frontend.featurize_batch(batch[0], batch[1], cfg)
+    forward = lambda: las.total_loss(ts.model, (*feats, *batch[2:]), cfg,
+                                     batch[2].shape[1], ts.generator,
+                                     ts.step)
+    fwd_ms = float(np.median([cuda_ms(forward, 1) for _ in range(3)]))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("train_step"):
+            step()
+        torch.cuda.synchronize()
+    events = prof.events()
+    busy_ms, span_ms = device_busy(events, "train_step")
+    ms = float(np.median(times))
+    print(f"train step, {S / SR:.3f} s bucket, batch {B}, "
+          f"{batch[2].shape[1]} decoder steps [{card}]: {ms:.2f} ms/step "
+          f"(median of {[round(t, 2) for t in times]}); frontend "
+          f"{fe_ms:.3f} ms = {100 * fe_ms / ms:.2f} % of the step; forward "
+          f"(listener + speller + losses) {fwd_ms:.2f} ms; peak device "
+          f"memory {peak} bytes; profiled step: device busy {busy_ms:.2f} "
+          f"ms of {span_ms:.2f} ms, idle share {1 - busy_ms / span_ms:.4f}")
+    print(f"  top kernels of the profiled step [{card}]: "
+          f"{top_kernels(events)}")
+
+
+def phase_train(dev, card: str) -> int:
+    """Published-width training over raw-audio shards; returns the kernel
+    launches of the train.main runs."""
+    cfg = train_cfg()
+    rng = np.random.default_rng(2)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        write_train_shards(d, rng)
+        print(f"training shards: {sum(TRAIN_BATCH)} synthesized records "
+              f"in {time.perf_counter() - t0:.1f} s")
+        launches = 0
+        for name, extra in (("att", []),
+                            ("ctc", ["--ctc", "True", "--ctc_weight", "0.2"])):
+            save = os.path.join(d, f"model_{name}")
+            launches += run_train_cli(d, save, 1, extra)
+            launches += run_train_cli(d, save, 2, extra)   # resumes at 4
+
+        loader = BucketedLoader(
+            sorted(glob.glob(os.path.join(d, "train-*.arsh"))), cfg, seed=0)
+        it = iter(loader)
+        host_batches = sorted((next(it) for _ in TRAIN_BUCKETS),
+                              key=lambda b: b[0].shape[1])
+    batches = [tuple(torch.from_numpy(x).to(dev) for x in b)
+               for b in host_batches]
+
+    ts = trainer.create_train_state(cfg, dev)
+    print(f"training: LAS at published width, "
+          f"{las.num_params(ts.model)} trainable parameters")
+    for batch in batches:
+        step_timings(ts, batch, cfg, card)
+
+    # the loss falls on one repeated batch
+    ts = trainer.create_train_state(cfg, dev)
+    losses = torch.stack([trainer.train_step(ts, batches[0], cfg)["loss"]
+                          for _ in range(OVERFIT_STEPS)]).tolist()
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall in {OVERFIT_STEPS} steps "
+                             f"on one batch: {losses}")
+    print(f"{OVERFIT_STEPS} steps on one {TRAIN_SECONDS[0]} s batch: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+
+    # one step from identical state: kernel frontend vs plain frontend
+    got = {}
+    for use_kernel in (True, False):
+        c = cfg.replace(use_pallas=use_kernel)
+        m = trainer.train_step(trainer.create_train_state(c, dev),
+                               batches[1], c)
+        got[use_kernel] = (m["loss"].item(), m["grad_norm"].item())
+    (lk, gk), (lp, gp) = got[True], got[False]
+    if abs(lk - lp) > 1e-4 * abs(lp) or abs(gk - gp) > 1e-3 * abs(gp):
+        raise AssertionError(f"kernel vs plain frontend step: loss {lk} vs "
+                             f"{lp}, grad norm {gk} vs {gp}")
+    print(f"one step on the {TRAIN_SECONDS[1]} s batch, kernel vs plain "
+          f"frontend: loss {lk:.6f} vs {lp:.6f} (rel {abs(lk - lp) / lp:.2e}"
+          f"), grad norm {gk:.6f} vs {gp:.6f} (rel "
+          f"{abs(gk - gp) / gp:.2e})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -303,6 +560,7 @@ def main() -> int:
 
     worst, ms, plain_ms = phase_kernel(dev, card)
     launches = phase_serving(dev, card)
+    launches += phase_train(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_frontend", "route": "cuda", "source": KERNEL_SOURCE,

@@ -93,3 +93,37 @@ def test_recognizer_features_on_cuda_match_cpu(cuda):
                                rtol=1e-4, atol=1e-4)
     texts = recs[1].transcribe_signals(sigs)
     assert len(texts) == 3 and all(isinstance(t, str) for t in texts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctc", [False, True])
+def test_train_step_on_cuda_matches_cpu(cuda, ctc):
+    """One train step over a raw-audio batch (the fused kernel inside the
+    step on the card, the plain frontend on the CPU) from the same init:
+    loss and gradient norm rtol 1e-4, as the CPU parity tests hold the
+    port to JAX; bias_hh stays zero."""
+    from automatic_speech_recognition_torch.training import trainer
+    cfg = Config(unit="char", vocab_size=30, feat_dim=13, enc_units=32,
+                 num_enc_channels=4, num_enc_layers=2, dec_units=32,
+                 num_dec_layers=2, embedding_size=16, attention_size=16,
+                 mode="loc", dropout_rate=0.0, scheduled_sampling=False,
+                 audio_shards=True, ctc=ctc)
+    rng = np.random.default_rng(0)
+    S = 2 * SR
+    sig = (rng.standard_normal((4, S, 1, 1)) * 0.1).astype(np.float32)
+    siglen = np.array([S, S - 5000, S // 2, 9000], np.int32)
+    y = rng.integers(3, 29, (4, 12)).astype(np.int32)
+    y[2, 8:] = 0
+    batch = (sig, siglen, y, (y != 0).sum(1).astype(np.int32))
+    got = {}
+    for dev in (torch.device("cpu"), cuda):
+        ts = trainer.create_train_state(cfg, dev)
+        before = cuda_frontend.fused_frontend.launches
+        m = trainer.train_step(ts, tuple(torch.from_numpy(a).to(dev)
+                                         for a in batch), cfg)
+        launched = cuda_frontend.fused_frontend.launches - before
+        assert launched == (1 if dev.type == "cuda" else 0)
+        got[dev.type] = (m["loss"].item(), m["grad_norm"].item())
+        rnn = ts.model.listener.layers[0].birnn
+        assert not rnn.bias_hh_l0.any() and not rnn.bias_hh_l0_reverse.any()
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4)

@@ -166,3 +166,22 @@ def test_wrapper_sends_a_cpu_tensor_to_the_plain_path(rng):
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_frontend.fused_frontend(a.to("meta"), fl.to("meta"), **kw)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("cmvn", [True, False])
+def test_featurize_batch_matches_jax(rng, cmvn, use_pallas):
+    """The train step's featurization of a raw-audio loader batch,
+    (B, S, 1, 1), with a sub-frame row whose frame count floors at 1."""
+    from automatic_speech_recognition_tpu.config import Config
+    cfg = Config(feat_dim=13, cmvn=cmvn, use_pallas=use_pallas)
+    audio, audiolen = _batch(rng)
+    sig = audio[:, :, None, None]
+    fj, lj = jfe.featurize_batch(sig, audiolen, cfg)
+    ft, lt = tfe.featurize_batch(torch.from_numpy(sig),
+                                 torch.from_numpy(audiolen), cfg)
+    assert ft.shape == np.asarray(fj).shape == (3, 205, 13, 3 if cmvn else 1)
+    np.testing.assert_array_equal(lt.numpy(), np.asarray(lj))
+    assert lt.tolist()[2] == 1
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=RTOL,
+                               atol=ATOL)
