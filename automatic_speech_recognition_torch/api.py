@@ -1,38 +1,72 @@
-"""Inference API: waveforms -> transcripts (counterpart of
+"""Inference API: waveforms or audio files -> transcripts (counterpart of
 automatic_speech_recognition_tpu/api.py).
 
-    rec = Recognizer(model, cfg, tokenizer, device)
-    texts = rec.transcribe_signals([sig_a, sig_b])
+    rec = Recognizer.from_checkpoint(save_dir, cfg, lm_dir=lm_dir)
+    texts = rec.transcribe(["a.flac", "b.wav"], beam_size=8)
+    texts = rec.transcribe_signals([sig_a, sig_b])          # greedy
 
 The path: pad to a whole second -> frontend (the fused CUDA kernel on a
-GPU, the plain path on the CPU) -> greedy LAS -> detokenization.  Beam
-search and `from_checkpoint` are not ported yet.
+GPU, the plain path on the CPU) -> greedy LAS, or batched beam search
+(decoding/beam.py, with the recognizer's fusion LM and cfg's beam flags)
+-> detokenization of rank 0.  Not ported: the multi-device mesh (ROADMAP
+item 8) and int8 decoder weights (item 6).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from automatic_speech_recognition_tpu.config import Config
+from automatic_speech_recognition_tpu.data.audio_io import read_audio
 from automatic_speech_recognition_tpu.utils.text import convert_idx_to_string
+from automatic_speech_recognition_tpu.utils.tokenizer import get_tokenizer
 
+from .decoding import beam as beam_lib
+from .models import char_rnn
 from .models.las import LAS
 from .ops import frontend
 from .training import trainer
+from .training.checkpoint import CheckpointManager
 from .utils.device import resolve_device
 
 
 class Recognizer:
-    """LAS model + config + tokenizer on one device."""
+    """LAS model + config + tokenizer (+ optional fusion LM) on one
+    device."""
 
-    def __init__(self, model: LAS, cfg: Config, tokenizer, device):
+    def __init__(self, model: LAS, cfg: Config, tokenizer, device,
+                 lm: Optional[char_rnn.CharRNN] = None,
+                 lm_cfg: Optional[char_rnn.LMConfig] = None):
         self.device = resolve_device(str(device))
         self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.tokenizer = tokenizer
+        self.lm = lm.to(self.device).eval() if lm is not None else None
+        self.lm_cfg = lm_cfg
+
+    @classmethod
+    def from_checkpoint(cls, save_dir: str, cfg: Config, epoch: int = -1,
+                        lm_dir: str = "",
+                        device: Union[str, torch.device] = "cuda"
+                        ) -> "Recognizer":
+        """The port's LAS checkpoint in save_dir (epoch -1 = latest) and,
+        with lm_dir, the fusion LM of that LM directory."""
+        if cfg.quantize_decoder != "none":
+            raise NotImplementedError(
+                "--quantize_decoder (int8 decoder weights) is not ported yet "
+                "(ROADMAP item 6)")
+        tokenizer = get_tokenizer(cfg.unit, cfg.subword_dir)
+        cfg = cfg.replace(vocab_size=tokenizer.get_vocab_size())
+        model = CheckpointManager(save_dir).load_weights(LAS(cfg), epoch)
+        if model is None:
+            raise FileNotFoundError(f"no checkpoint in {save_dir}")
+        lm = lm_cfg = None
+        if lm_dir:
+            lm, lm_cfg, _, _ = char_rnn.load_lm_dir(lm_dir)
+        return cls(model, cfg, tokenizer, device, lm, lm_cfg)
 
     def _features(self, signals: Sequence[np.ndarray], pad_seconds: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -53,19 +87,53 @@ class Recognizer:
     def greedy(self, feats: torch.Tensor, featlen: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits, y_hat) for a feature batch, max_steps from its length."""
-        max_steps = max(int(self.cfg.convert_rate * feats.shape[1]), 1)
         return trainer.eval_forward(self.model, feats, featlen, self.cfg,
-                                    max_steps)
+                                    self.max_steps(feats))
+
+    def beam(self, feats: torch.Tensor, featlen: torch.Tensor,
+             beam_size: int) -> beam_lib.BeamResult:
+        """Beam search over a feature batch with cfg's beam flags and the
+        recognizer's LM."""
+        return beam_lib.beam_search(
+            self.model, feats, featlen, self.cfg, self.max_steps(feats),
+            beam_size, self.cfg.beam_logprob, self.lm, self.lm_cfg)
+
+    def max_steps(self, feats: torch.Tensor) -> int:
+        return max(int(self.cfg.convert_rate * feats.shape[1]), 1)
 
     def transcribe_signals(self, signals: Sequence[np.ndarray],
                            beam_size: int = 0,
                            pad_seconds: int = 0) -> List[str]:
-        """signals: float waveforms at cfg.sample_rate.  Greedy only."""
-        if beam_size > 1:
-            raise NotImplementedError("beam search is not ported yet")
+        """signals: float waveforms at cfg.sample_rate.  beam_size 0/1:
+        greedy; > 1: beam search, rank 0."""
         feats, featlen = self._features(signals, pad_seconds)
-        _, y_hat = self.greedy(feats, featlen)
-        y_hat = y_hat.cpu().numpy()
-        return [convert_idx_to_string(y_hat[i], self.tokenizer.id_to_token,
-                                      self.cfg.unit)
-                for i in range(len(signals))]
+        if beam_size > 1:
+            res = self.beam(feats, featlen, beam_size)
+            toks, tlen = res.tokens.cpu().numpy(), res.lengths.cpu().numpy()
+            ids = [toks[i, 0, :tlen[i, 0]] for i in range(len(signals))]
+        else:
+            _, y_hat = self.greedy(feats, featlen)
+            ids = list(y_hat.cpu().numpy())
+        return [convert_idx_to_string(x, self.tokenizer.id_to_token,
+                                      self.cfg.unit) for x in ids]
+
+    def transcribe(self, paths: Sequence[str], beam_size: int = 0,
+                   batch_size: int = 8) -> List[str]:
+        """Transcribe audio files (WAV/FLAC) in length-sorted batches,
+        preserving input order."""
+        signals = []
+        for p in paths:
+            sig, sr = read_audio(p)
+            if sr != self.cfg.sample_rate:
+                raise ValueError(
+                    f"{p}: sample rate {sr} != {self.cfg.sample_rate}")
+            signals.append(np.asarray(sig, np.float32))
+        order = sorted(range(len(signals)), key=lambda i: len(signals[i]))
+        out: List[Optional[str]] = [None] * len(signals)
+        for lo in range(0, len(order), batch_size):
+            idx = order[lo:lo + batch_size]
+            texts = self.transcribe_signals([signals[i] for i in idx],
+                                            beam_size)
+            for i, t in zip(idx, texts):
+                out[i] = t
+        return out  # type: ignore[return-value]

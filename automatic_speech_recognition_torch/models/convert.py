@@ -1,9 +1,11 @@
-"""Carry weights between the JAX package's pytrees and the port's LAS.
+"""Carry weights between the JAX package's pytrees and the port's models.
 
 `from_jax_params` takes the nested dicts that
 automatic_speech_recognition_tpu.models.las.las_init returns (params and
 BN state), with every leaf a NumPy array, and loads them; `to_jax_params`
-is its inverse.  Layouts: dense (in, out) <-> Linear (out, in); conv HWIO
+is its inverse.  `from_jax_lm_params` / `to_jax_lm_params` do the same for
+models/char_rnn.lm_init's tree (rnn, lstm and gru cells, one-hot or
+embedding input).  Layouts: dense (in, out) <-> Linear (out, in); conv HWIO
 <-> OIHW; a BiRNN cell's fused (D + U, U) kernel <-> nn.RNN weight_ih =
 w[:D].T, weight_hh = w[D:].T, bias_ih = b (bias_hh is a zero buffer);
 location conv (K, 1, C) <-> (C, 1, K).  A missing or extra key, or a wrong
@@ -20,7 +22,8 @@ from torch import nn
 
 from automatic_speech_recognition_tpu.config import Config
 
-from . import las
+from ..ops import layers as L
+from . import char_rnn, las
 
 _Target = List[Tuple[torch.Tensor, Callable[[np.ndarray], np.ndarray]]]
 
@@ -65,10 +68,12 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def _dense(targets, path: str, m: nn.Linear) -> None:
-    targets[f"{path}/w"] = [(m.weight, _t)]
+def _dense(targets, path: str, m: nn.Linear, w: str = "w",
+           b: str = "b") -> None:
+    prefix = f"{path}/" if path else ""
+    targets[prefix + w] = [(m.weight, _t)]
     if m.bias is not None:
-        targets[f"{path}/b"] = [(m.bias, _same)]
+        targets[prefix + b] = [(m.bias, _same)]
 
 
 def _birnn(targets, path: str, rnn: nn.RNN) -> None:
@@ -134,16 +139,12 @@ def _targets(model: las.LAS) -> Dict[str, _Target]:
 
 
 @torch.no_grad()
-def from_jax_params(params_np: Dict, bn_state_np: Dict, cfg: Config,
-                    device: torch.device) -> las.LAS:
-    """The port's LAS holding the given JAX params and BN state."""
-    model = las.LAS(cfg)
-    targets = _targets(model)
-    given = {**_flatten(params_np, "params"), **_flatten(bn_state_np, "state")}
+def _fill(targets: Dict[str, _Target], given: Dict[str, np.ndarray],
+          what: str) -> None:
     missing = sorted(set(targets) - set(given))
     extra = sorted(set(given) - set(targets))
     if missing or extra:
-        raise KeyError(f"JAX pytree does not match the port's LAS: "
+        raise KeyError(f"JAX pytree does not match the port's {what}: "
                        f"missing {missing}, unexpected {extra}")
     for path, fills in targets.items():
         for tensor, fn in fills:
@@ -153,6 +154,14 @@ def from_jax_params(params_np: Dict, bn_state_np: Dict, cfg: Config,
                                  f"{arr.shape}, expected "
                                  f"{tuple(tensor.shape)}")
             tensor.copy_(torch.from_numpy(arr))
+
+
+def from_jax_params(params_np: Dict, bn_state_np: Dict, cfg: Config,
+                    device: torch.device) -> las.LAS:
+    """The port's LAS holding the given JAX params and BN state."""
+    model = las.LAS(cfg)
+    _fill(_targets(model), {**_flatten(params_np, "params"),
+                            **_flatten(bn_state_np, "state")}, "LAS")
     return model.to(device).eval()
 
 
@@ -167,10 +176,44 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
     return tree
 
 
+def _to_tree(targets: Dict[str, _Target]) -> Dict:
+    return _unflatten({
+        path: np.ascontiguousarray(_leaf(fills), dtype=np.float32)
+        for path, fills in targets.items()})
+
+
 def to_jax_params(model: las.LAS) -> Tuple[Dict, Dict]:
     """(params, bn_state): the model's weights and BN statistics as the
     JAX package's NumPy pytrees, the inverse of from_jax_params."""
-    flat = {path: np.ascontiguousarray(_leaf(fills), dtype=np.float32)
-            for path, fills in _targets(model).items()}
-    tree = _unflatten(flat)
+    tree = _to_tree(_targets(model))
     return tree["params"], tree["state"]
+
+
+def _lm_targets(model: char_rnn.CharRNN) -> Dict[str, _Target]:
+    """lm_init's path -> port tensors: embedding/softmax_w/softmax_b, and
+    cell_i/{w, b} (rnn, lstm) or cell_i/{wg, bg, wc, bc} (gru)."""
+    t: Dict[str, _Target] = {}
+    if model.embedding is not None:
+        t["embedding"] = [(model.embedding.weight, _same)]
+    for i, cell in enumerate(model.cells):
+        if isinstance(cell, L.GRUCell):
+            _dense(t, f"cell_{i}", cell.gates, "wg", "bg")
+            _dense(t, f"cell_{i}", cell.candidate, "wc", "bc")
+        else:
+            _dense(t, f"cell_{i}", cell)
+    _dense(t, "", model.softmax, "softmax_w", "softmax_b")
+    return t
+
+
+def from_jax_lm_params(params_np: Dict, cfg: char_rnn.LMConfig,
+                       device: torch.device) -> char_rnn.CharRNN:
+    """The port's CharRNN holding the given lm_init-style params."""
+    model = char_rnn.CharRNN(cfg)
+    _fill(_lm_targets(model), _flatten(params_np), "CharRNN")
+    return model.to(device).eval()
+
+
+def to_jax_lm_params(model: char_rnn.CharRNN) -> Dict:
+    """The LM's weights as lm_init's NumPy pytree (from_jax_lm_params's
+    inverse)."""
+    return _to_tree(_lm_targets(model))

@@ -6,15 +6,16 @@ c0 = log energy (mfcc) or mel energies (fbank) -> masked per-utterance CMVN
 -> feature-axis delta stacking, giving (B, T, D, 3) float32 (cmvn on) or
 (B, T, D) raw features (cmvn off), with the speechpy semantics the JAX
 package pins.  This is the path for CPU tensors and the reference the CUDA
-kernel (ops/cuda_frontend.py) is held against; `extract_features_cfg`
-and `featurize_batch` (the train step over raw-audio shards) send CUDA
-tensors to the kernel when `cfg.use_pallas` is set.
+kernel (ops/cuda_frontend.py) is held against; `extract_features_cfg`,
+`extract_features_list` (decoding raw-audio shards) and `featurize_batch`
+(the train step over raw-audio shards) send CUDA tensors to the kernel
+when `cfg.use_pallas` is set.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -190,6 +191,32 @@ def extract_features_cfg(audio: torch.Tensor, audiolen: torch.Tensor, cfg,
         feat_type=cfg.feat_type, apply_cmvn=cfg.cmvn,
         fft_length=cfg.fft_length, num_mel_filters=cfg.num_mel_filters,
         frames_max=frames_max, use_kernel=cfg.use_pallas)
+
+
+def extract_features_list(signals, cfg, device: torch.device,
+                          batch_size: int = 128,
+                          pad_quantum_s: float = 1.0) -> List[np.ndarray]:
+    """Featurize a list of waveforms on `device` (the fused kernel on a
+    GPU with cfg.use_pallas): sorted by length, batch_size at a time,
+    padded to a whole number of pad_quantum_s; returns per-utterance
+    (T_i, D, 3) float32 arrays (T_i = featlen) in the input order."""
+    order = sorted(range(len(signals)), key=lambda i: len(signals[i]))
+    quantum = max(int(pad_quantum_s * cfg.sample_rate), 1)
+    out: List[np.ndarray] = [None] * len(signals)
+    for lo in range(0, len(order), batch_size):
+        idx = order[lo:lo + batch_size]
+        lens = np.asarray([len(signals[i]) for i in idx], np.int32)
+        padded = np.zeros((len(idx), -(-int(lens.max()) // quantum)
+                           * quantum), np.float32)
+        for r, i in enumerate(idx):
+            padded[r, :lens[r]] = signals[i]
+        feats, featlen = extract_features_cfg(
+            torch.from_numpy(padded).to(device),
+            torch.from_numpy(lens).to(device), cfg)
+        feats, featlen = feats.cpu().numpy(), featlen.cpu().numpy()
+        for r, i in enumerate(idx):
+            out[i] = feats[r, :featlen[r]]
+    return out
 
 
 def featurize_batch(sig: torch.Tensor, siglen: torch.Tensor, cfg

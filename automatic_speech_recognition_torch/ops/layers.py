@@ -6,8 +6,10 @@ JAX's dense_apply is nn.Linear.  Activations keep the JAX package's
 layouts, so conv2d_apply takes and returns NHWC.  The semantics kept on
 purpose:
 
-- the reference's "lstm" cells are vanilla tanh RNN cells,
-  h' = tanh([x, h] @ W + b) with one bias;
+- the reference's LAS "lstm" cells are vanilla tanh RNN cells,
+  h' = tanh([x, h] @ W + b) with one bias; the language model's lstm and
+  gru cells are TF's BasicLSTMCell and GRUCell over fused [x, h] weights
+  (not nn.LSTM / nn.GRU, whose gate order and biases differ);
 - the bidirectional RNN's backward direction runs over the full padded
   sequence reversed (no sequence lengths), as nn.RNN does unpacked;
 - conv2d: 3x3, stride 2, TF 'SAME' padding, which pads (0, 1) on an even
@@ -56,6 +58,38 @@ def rnn_cell_apply(cell: nn.Linear, x: torch.Tensor,
                    h: torch.Tensor) -> torch.Tensor:
     """Vanilla tanh RNN cell, one fused Linear over [x, h]."""
     return torch.tanh(cell(torch.cat([x, h], -1)))
+
+
+def lstm_cell_apply(cell: nn.Linear, x: torch.Tensor,
+                    state: Tuple[torch.Tensor, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """TF BasicLSTMCell with forget_bias 0, as the reference's language
+    model builds it: one fused Linear over [x, h] to 4U, gates in the
+    order i, j, f, o.  Returns (h', (c', h'))."""
+    c, h = state
+    i, j, f, o = cell(torch.cat([x, h], -1)).chunk(4, -1)
+    new_c = c * torch.sigmoid(f) + torch.sigmoid(i) * torch.tanh(j)
+    new_h = torch.tanh(new_c) * torch.sigmoid(o)
+    return new_h, (new_c, new_h)
+
+
+class GRUCell(nn.Module):
+    """TF GRUCell weights: `gates` over [x, h] to the r, u gates (bias
+    initialized to 1.0), `candidate` over [x, r * h]."""
+
+    def __init__(self, in_dim: int, units: int):
+        super().__init__()
+        self.gates = nn.Linear(in_dim + units, 2 * units)
+        self.candidate = nn.Linear(in_dim + units, units)
+
+
+def gru_cell_apply(cell: GRUCell, x: torch.Tensor,
+                   h: torch.Tensor) -> torch.Tensor:
+    """TF GRUCell: u * h + (1 - u) * tanh([x, r * h] W_c + b_c)."""
+    r, u = torch.sigmoid(cell.gates(torch.cat([x, h], -1))).chunk(2, -1)
+    c = torch.tanh(cell.candidate(torch.cat([x, r * h], -1)))
+    return u * h + (1.0 - u) * c
 
 
 def make_birnn(in_dim: int, units: int) -> nn.RNN:

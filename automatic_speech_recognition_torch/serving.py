@@ -91,7 +91,7 @@ class BatchingRecognizer:
       max_batch: batch size per device dispatch (one shape).
       max_wait_ms: longest a request waits for co-riders before its
         bucket is flushed anyway.
-      beam_size: 0/1 greedy (passed through).
+      beam_size: 0/1 greedy, > 1 beam search (passed through).
       bucket_seconds: ascending padded-length ladder; a signal rides the
         smallest bucket that fits it.  Defaults to powers of two up to
         cfg.max_audio_seconds.

@@ -25,7 +25,6 @@ Tiny CPU run:
 
 from __future__ import annotations
 
-import argparse
 import glob
 import logging
 import os
@@ -49,7 +48,7 @@ from automatic_speech_recognition_tpu.utils.watchdog import StallWatchdog
 
 from .training import trainer
 from .training.checkpoint import CheckpointManager
-from .utils.device import resolve_device
+from .utils.device import disable_tf32, resolve_device, split_device
 
 
 def setup_logging() -> logging.Logger:
@@ -57,14 +56,6 @@ def setup_logging() -> logging.Logger:
         force=True, stream=sys.stdout, level=logging.INFO,
         format="%(asctime)s [%(levelname)s] %(message)s")
     return logging.getLogger("train")
-
-
-def split_device(argv: Optional[Sequence[str]]) -> Tuple[str, List[str]]:
-    """--device (default cuda) apart from train.py's own flags."""
-    pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--device", default="cuda")
-    ns, rest = pre.parse_known_args(argv)
-    return ns.device, rest
 
 
 def refuse_unported(cfg: Config) -> None:
@@ -94,9 +85,7 @@ def main(argv: Optional[Sequence[str]] = None
     refuse_unported(cfg)
     device = resolve_device(device_name)
     if device.type == "cuda":
-        # float32 means float32: no TF32 in matmuls or cuDNN convolutions
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        disable_tf32()
     watchdog = (StallWatchdog(cfg.stall_timeout_s, what="startup").start()
                 if cfg.stall_timeout_s > 0 else None)
 

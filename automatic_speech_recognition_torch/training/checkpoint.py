@@ -4,11 +4,13 @@ automatic_speech_recognition_tpu/training/checkpoint.py, same interface).
 One file per epoch, `<dir>/<epoch>.pt`, written by torch.save: the model's
 state dict (weights, BN moving statistics), the optimizer's state (Adam
 moments, update count, MultiSteps accumulator), the micro-step count and
-the generator's state.  A save writes `<epoch>.pt.tmp` and renames it over
-the target with os.replace, so a crash mid-save leaves the previous copy
-of that epoch whole; restore ignores the torn temp file and the next save
-replaces it.  The oldest epochs beyond max_to_keep are deleted after each
-save.  Single process: the port trains on one GPU.
+the generator's state; `save_weights` writes the state dict alone, which
+`load_weights` reads (as every evaluation restore does).  A save writes
+`<epoch>.pt.tmp` and renames it over the target with os.replace, so a
+crash mid-save leaves the previous copy of that epoch whole; restore
+ignores the torn temp file and the next save replaces it.  The oldest
+epochs beyond max_to_keep are deleted after each save.  Single process:
+the port trains on one GPU.
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ import re
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch import nn
 
-from ..models import convert
 from ..models.las import LAS
 from .trainer import TrainState
 
@@ -44,12 +46,19 @@ class CheckpointManager:
         Always synchronous (`block` is kept for the interface): the state
         is copied to the host inside torch.save."""
         del block
-        payload = {
+        self._write(epoch, {
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "step": state.step,
             "generator": state.generator.get_state(),
-        }
+        })
+
+    def save_weights(self, epoch: int, model: nn.Module) -> None:
+        """Save a model's weights alone, for evaluation (`load_weights`);
+        `restore` cannot resume training from such a file."""
+        self._write(epoch, {"model": model.state_dict()})
+
+    def _write(self, epoch: int, payload: Dict) -> None:
         tmp = self._path(epoch) + _TMP_SUFFIX
         with open(tmp, "wb") as f:
             torch.save(payload, f)
@@ -91,17 +100,27 @@ class CheckpointManager:
         state_like.generator.set_state(payload["generator"])
         return state_like
 
-    def restore_for_eval(self, model_like: LAS, epoch: int = -1
-                         ) -> Optional[Tuple[Dict, Dict]]:
-        """Weights-only restore: load the weights and BN statistics into
-        `model_like` (optimizer state and generator are not read) and
-        return them as the JAX package's (params, bn_state) NumPy trees,
-        which its evaluation scripts take.  None if there is nothing to
-        restore."""
+    def load_weights(self, model_like: nn.Module, epoch: int = -1
+                     ) -> Optional[nn.Module]:
+        """Weights-only restore: load the weights (and BN statistics) into
+        `model_like` and return it; optimizer state and generator are not
+        read.  None if there is nothing to restore."""
         payload = self._load(epoch)
         if payload is None:
             return None
         model_like.load_state_dict(payload["model"])
+        return model_like
+
+    def restore_for_eval(self, model_like: LAS, epoch: int = -1
+                         ) -> Optional[Tuple[Dict, Dict]]:
+        """`load_weights` into `model_like`, returned as the JAX package's
+        (params, bn_state) NumPy trees, which its evaluation scripts take.
+        None if there is nothing to restore."""
+        # imported here: models/convert imports the language model, whose
+        # directory I/O imports this module
+        from ..models import convert
+        if self.load_weights(model_like, epoch) is None:
+            return None
         return convert.to_jax_params(model_like)
 
     def close(self) -> None:

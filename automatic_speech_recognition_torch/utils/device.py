@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import argparse
+from typing import List, Optional, Sequence, Tuple
+
 import torch
 
 
@@ -21,3 +24,18 @@ def resolve_device(name: str = "cuda") -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {name!r}")
     return device
+
+
+def split_device(argv: Optional[Sequence[str]]) -> Tuple[str, List[str]]:
+    """--device (default cuda) apart from the repository CLIs' own flags."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", default="cuda")
+    ns, rest = pre.parse_known_args(argv)
+    return ns.device, rest
+
+
+def disable_tf32() -> None:
+    """float32 means float32: no TF32 in CUDA matmuls or cuDNN
+    convolutions (the CLIs' setting on a GPU)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

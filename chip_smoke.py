@@ -29,14 +29,33 @@
    bucket, ms per train step (CUDA events, median of 3), the frontend's
    share of it, peak device memory, and the device idle share of one step
    from a torch.profiler trace.
+5. Decodes by beam search at the same width with a CTC head: the model
+   and a published-shape fusion LM (lstm 4 x 512, one-hot over the
+   28-token char vocabulary, seed 1) are written to disk (port checkpoint,
+   save_lm_dir) and loaded back through Recognizer.from_checkpoint(...,
+   lm_dir=...).  The speller's and CTC head's EOS biases are lowered by
+   20, so each search runs its step budget as a trained model's about
+   does.  Beam 8 with log-prob scoring on 8-utterance batches of
+   synthesized speech at the 2, 8 and 16 s buckets, in three modes:
+   attention only, + LM (lm_weight 0.5), + joint CTC (ctc_beam_weight
+   0.5); ms per batch (CUDA events, mean of 3), decoder steps, ms per
+   step beside frontend + listener, and peak device memory each.  Serves
+   8 concurrent requests through BatchingRecognizer(beam_size=8).
+   Checks: every result a str, rank 0 a hypothesis and every score a
+   number, the fused kernel launched, beam 1 = greedy up to the first
+   near tie, and CUDA = CPU in rank-0 tokens on a 2 s batch in each mode
+   (where they differ, the two rank-0 scores must tie within 1e-3
+   relative).  The device idle share comes from one torch.profiler trace
+   of the 8 s joint-CTC batch.
 
 Every phase raises on failure.  The last line is the result JSON; the
-line before it lists the kernels, with the launches of the serving and
-the training runs.  Without CUDA it exits non-zero.
+line before it lists the kernels, with the launches of the serving,
+training and beam runs.  Without CUDA it exits non-zero.
 """
 
 from __future__ import annotations
 
+import copy
 import glob
 import json
 import os
@@ -55,10 +74,12 @@ from automatic_speech_recognition_tpu.data.pipeline import BucketedLoader
 from automatic_speech_recognition_tpu.ops import frontend_host as host
 from automatic_speech_recognition_tpu.utils.formant_synth import (
     PHONES, synth_phones)
-from automatic_speech_recognition_tpu.utils.tokenizer import CharEncoder
+from automatic_speech_recognition_tpu.utils.tokenizer import (CharEncoder,
+                                                               EOS_ID)
 from automatic_speech_recognition_torch import train as train_cli
 from automatic_speech_recognition_torch.api import Recognizer
-from automatic_speech_recognition_torch.models import las
+from automatic_speech_recognition_torch.decoding import beam as beam_lib
+from automatic_speech_recognition_torch.models import char_rnn, las
 from automatic_speech_recognition_torch.ops import _kernels, cuda_frontend
 from automatic_speech_recognition_torch.ops import frontend
 from automatic_speech_recognition_torch.serving import BatchingRecognizer
@@ -92,6 +113,14 @@ PUBLISHED_FLAGS = [
     "--lr", "1e-4", "--grad_clip", "5", "--label_smoothing", "True",
     "--dtype", "float32", "--use_pallas", "True", "--audio_shards", "True",
     "--bucket_boundaries_train", ",".join(map(str, TRAIN_BUCKETS))]
+BEAM_SIZE = 8                    # run.sh:32
+BEAM_BUCKETS = (2, 8, 16)
+# the fusion LM's published shape (config.py:189-190): lstm 4 x 512,
+# one-hot input over the 28-token char vocabulary
+LM_SHAPE = dict(vocab_size=28, hidden_size=512, num_layers=4,
+                embedding_size=0, model="lstm")
+NEAR_TIE = 1e-3
+EOS_SHIFT = 20.0                 # lowers the EOS logit of the beam's model
 
 
 def published_cfg() -> Config:
@@ -536,6 +565,208 @@ def phase_train(dev, card: str) -> int:
     return launches
 
 
+def beam_modes(cfg: Config):
+    """mode -> (config, whether the fusion LM is on): the recipe's beam
+    decodes (run.sh:32, :109-113, :136-140)."""
+    return {"attention": (cfg, False),
+            "lm": (cfg.replace(apply_lm=True, lm_weight=0.5), True),
+            "joint_ctc": (cfg.replace(ctc_beam_weight=0.5), False)}
+
+
+class BeamCheckedRecognizer(Recognizer):
+    """Records, for every beam batch it decodes, whether rank 0 holds a
+    hypothesis and every score is a number, and the decoder steps."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.ok, self.steps = [], []
+
+    def beam(self, feats, featlen, beam_size):
+        res = super().beam(feats, featlen, beam_size)
+        kept = res.scores > beam_lib.NEG / 2
+        self.ok.append(bool(kept[:, 0].all())
+                       and bool(torch.isfinite(res.scores[kept]).all())
+                       and not bool(torch.isnan(res.scores).any()))
+        self.steps.append(res.steps)
+        return res
+
+
+def compare_rank0(name: str, got, want) -> int:
+    """Rank-0 hypotheses of two beam runs: equal tokens, or, where they
+    differ, rank-0 scores that tie within NEAR_TIE relative (either is a
+    best hypothesis).  Returns the number of near ties."""
+    ties = 0
+    for b in range(want.tokens.shape[0]):
+        g = got.tokens[b, 0, :got.lengths[b, 0]].cpu()
+        w = want.tokens[b, 0, :want.lengths[b, 0]].cpu()
+        if torch.equal(g, w):
+            continue
+        sg, sw = float(got.scores[b, 0]), float(want.scores[b, 0])
+        if abs(sg - sw) > NEAR_TIE * abs(sw):
+            raise AssertionError(f"{name}: utterance {b} rank 0 differs "
+                                 f"({g.tolist()} vs {w.tolist()}) with "
+                                 f"scores {sg} vs {sw}")
+        ties += 1
+    return ties
+
+
+def check_beam1_greedy(rec: Recognizer, feats, featlen) -> int:
+    """Beam 1 against greedy y_hat, up to the first step where greedy's
+    top-2 logit gap is under NEAR_TIE, the first EOS (included) or <SOS>
+    (beam search never re-emits it), and the beam's own length.  Returns
+    the number of tokens compared."""
+    res = rec.beam(feats, featlen, 1)
+    logits, y_hat = rec.greedy(feats, featlen)
+    gap = logits.topk(2, -1).values.diff(dim=-1).abs()[..., 0]
+    compared = 0
+    for b in range(y_hat.shape[0]):
+        limit = int(res.lengths[b, 0])
+        tie = (gap[b] < NEAR_TIE).nonzero()
+        if len(tie):
+            limit = min(limit, int(tie[0]))
+        for stop, extra in ((2, 1), (1, 0)):
+            hit = (y_hat[b] == stop).nonzero()
+            if len(hit):
+                limit = min(limit, int(hit[0]) + extra)
+        if not torch.equal(res.tokens[b, 0, :limit], y_hat[b, :limit]):
+            raise AssertionError(f"beam 1 vs greedy, utterance {b}: "
+                                 f"{res.tokens[b, 0, :limit].tolist()} vs "
+                                 f"{y_hat[b, :limit].tolist()}")
+        compared += limit
+    return compared
+
+
+def phase_beam(dev, card: str) -> int:
+    """Published-width beam search (three modes, three buckets) and beam
+    serving; returns the kernel launches of those decodes."""
+    cfg = published_cfg().replace(ctc=True, beam_logprob=True)
+    model = las.init(cfg, torch.Generator().manual_seed(0), dev)
+    with torch.no_grad():
+        # random weights put EOS among the first candidates, so every
+        # search would fill its bank within a few steps; a lower EOS bias
+        # makes each utterance run its step budget, as a trained model's
+        # decode of speech at 11 characters a second about does
+        model.speller.out.bias[EOS_ID] -= EOS_SHIFT
+        model.speller.ctc_head.bias[EOS_ID] -= EOS_SHIFT
+    lm_cfg = char_rnn.LMConfig(**LM_SHAPE)
+    lm = char_rnn.init(lm_cfg, torch.Generator().manual_seed(1), dev)
+    with tempfile.TemporaryDirectory() as d:
+        CheckpointManager(os.path.join(d, "model")).save_weights(1, model)
+        char_rnn.save_lm_dir(os.path.join(d, "lm"), lm, lm_cfg)
+        base = BeamCheckedRecognizer.from_checkpoint(
+            os.path.join(d, "model"), cfg, lm_dir=os.path.join(d, "lm"),
+            device=dev)
+    for a, b in zip(list(model.state_dict().values())
+                    + list(lm.state_dict().values()),
+                    list(base.model.state_dict().values())
+                    + list(base.lm.state_dict().values())):
+        if not torch.equal(a, b):
+            raise AssertionError("weights changed on their way through disk")
+    print(f"beam: LAS at published width with a CTC head "
+          f"({las.num_params(base.model)} parameters), fusion LM "
+          f"{LM_SHAPE} ({sum(p.numel() for p in base.lm.parameters())} "
+          f"parameters), both loaded by Recognizer.from_checkpoint")
+    recs = {mode: BeamCheckedRecognizer(
+                base.model, c, base.tokenizer, dev,
+                base.lm if use_lm else None, base.lm_cfg if use_lm else None)
+            for mode, (c, use_lm) in beam_modes(cfg).items()}
+    rng = np.random.default_rng(3)
+    batches = {b: [speech(rng, b * rng.uniform(0.8, 1.0)) for _ in range(8)]
+               for b in BEAM_BUCKETS}
+    serve_sigs = [speech(rng, s) for s in (1.0, 1.8, 2.5, 3.5, 6.0, 7.5,
+                                           12.0, 15.0)]
+
+    cuda_frontend.fused_frontend.launches = 0
+    texts = []
+    for b in BEAM_BUCKETS:
+        encode = lambda: base.model.listener(*base._features(
+            batches[b], pad_seconds=b))
+        with torch.inference_mode():
+            encode()
+            enc_ms = cuda_ms(encode, 3)
+        for mode, rec in recs.items():
+            run = lambda: texts.extend(rec.transcribe_signals(
+                batches[b], beam_size=BEAM_SIZE, pad_seconds=b))
+            run()                                          # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = cuda_ms(run, 3)
+            peak = torch.cuda.max_memory_allocated(dev)
+            steps = rec.steps[-1]
+            print(f"beam {BEAM_SIZE}, batch of 8 at the {b:2d} s bucket, "
+                  f"{mode:9s} [{card}]: {ms:.2f} ms/batch, {steps} decoder "
+                  f"steps, {(ms - enc_ms) / steps:.3f} ms/step beside "
+                  f"frontend + listener {enc_ms:.2f} ms, peak device memory "
+                  f"{peak} bytes")
+    srv = BatchingRecognizer(recs["joint_ctc"], max_batch=8, max_wait_ms=50,
+                             beam_size=BEAM_SIZE,
+                             bucket_seconds=(2, 4, 8, 16))
+    futures = [None] * len(serve_sigs)
+
+    def client(i):
+        futures[i] = srv.submit(serve_sigs[i])
+
+    with srv:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(serve_sigs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        served = [f.result(timeout=600) for f in futures]
+    torch.cuda.synchronize()
+    launches = cuda_frontend.fused_frontend.launches
+    snap = srv.stats.snapshot()
+    if not all(isinstance(t, str) for t in texts + served):
+        raise AssertionError("a beam decode did not give a str")
+    if snap["requests"] != len(serve_sigs) or snap["errors"]:
+        raise AssertionError(f"beam serving stats: {snap}")
+    if not all(all(rec.ok) for rec in recs.values()):
+        raise AssertionError("a beam batch had no rank-0 hypothesis or a "
+                             "non-finite kept score")
+    if launches == 0:
+        raise AssertionError("fused_frontend was not launched by the beam "
+                             "decodes")
+    print(f"beam serving of {len(served)} concurrent requests (joint CTC) "
+          f"[{card}]: {json.dumps(snap)}; fused_frontend launches in the "
+          f"beam phase {launches}; sample transcripts "
+          f"{[t[:24] for t in served[:3]]}")
+
+    rec = recs["joint_ctc"]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("beam_batch"):
+            rec.transcribe_signals(batches[8], beam_size=BEAM_SIZE,
+                                   pad_seconds=8)
+        torch.cuda.synchronize()
+    events = prof.events()
+    busy_ms, span_ms = device_busy(events, "beam_batch")
+    print(f"profiled beam batch, 8 s bucket, joint CTC [{card}]: device busy "
+          f"{busy_ms:.2f} ms of {span_ms:.2f} ms, idle share "
+          f"{1 - busy_ms / span_ms:.4f}, {rec.steps[-1]} decoder steps")
+    print(f"  top kernels of the profiled beam batch [{card}]: "
+          f"{top_kernels(events)}")
+
+    feats, featlen = recs["attention"]._features(batches[8], pad_seconds=8)
+    n = check_beam1_greedy(recs["attention"], feats, featlen)
+    print(f"beam 1 = greedy y_hat over {n} tokens of the 8 s batch")
+
+    feats, featlen = recs["attention"]._features(batches[2], pad_seconds=2)
+    model_cpu = copy.deepcopy(base.model).cpu()
+    lm_cpu = copy.deepcopy(base.lm).cpu()
+    for mode, (c, use_lm) in beam_modes(cfg).items():
+        on_cpu = Recognizer(model_cpu, c, base.tokenizer, "cpu",
+                            lm_cpu if use_lm else None,
+                            base.lm_cfg if use_lm else None)
+        got = recs[mode].beam(feats, featlen, BEAM_SIZE)
+        want = on_cpu.beam(feats.cpu(), featlen.cpu(), BEAM_SIZE)
+        ties = compare_rank0(f"CUDA vs CPU, {mode}", got, want)
+        print(f"CUDA vs CPU beam {BEAM_SIZE} on the 2 s batch, {mode}: rank 0 "
+              f"equal on {8 - ties} of 8 utterances, {ties} near ties")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -561,6 +792,7 @@ def main() -> int:
     worst, ms, plain_ms = phase_kernel(dev, card)
     launches = phase_serving(dev, card)
     launches += phase_train(dev, card)
+    launches += phase_beam(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_frontend", "route": "cuda", "source": KERNEL_SOURCE,

@@ -127,3 +127,47 @@ def test_train_step_on_cuda_matches_cpu(cuda, ctc):
         rnn = ts.model.listener.layers[0].birnn
         assert not rnn.bias_hh_l0.any() and not rnn.bias_hh_l0_reverse.any()
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["attention", "lm", "joint_ctc"])
+def test_beam_on_cuda_matches_cpu(cuda, mode):
+    """Batched beam search (beam 4, log-prob scoring) on the card and on
+    the CPU from the same weights and features: rank-0 tokens and lengths
+    equal, scores of the ranks holding a hypothesis within rtol 1e-4."""
+    import copy
+    from automatic_speech_recognition_torch.decoding import beam
+    from automatic_speech_recognition_torch.models import char_rnn
+    cfg = Config(unit="char", vocab_size=30, feat_dim=13, enc_units=32,
+                 num_enc_channels=4, num_enc_layers=2, dec_units=32,
+                 num_dec_layers=2, embedding_size=16, attention_size=16,
+                 mode="loc", convert_rate=0.12, lm_weight=0.5,
+                 ctc=mode == "joint_ctc",
+                 ctc_beam_weight=0.5 if mode == "joint_ctc" else 0.0)
+    cpu = torch.device("cpu")
+    model = las.init(cfg, torch.Generator().manual_seed(0), cpu)
+    lm = lm_cfg = None
+    if mode == "lm":
+        lm_cfg = char_rnn.LMConfig(vocab_size=28, hidden_size=32,
+                                   num_layers=2)
+        lm = char_rnn.init(lm_cfg, torch.Generator().manual_seed(1), cpu)
+    rng = np.random.default_rng(0)
+    feats = torch.from_numpy(rng.standard_normal((4, 200, 13, 3))
+                             .astype(np.float32))
+    lens = torch.tensor([200, 151, 90, 40], dtype=torch.int32)
+    res = {}
+    for dev in (cpu, cuda):
+        m = copy.deepcopy(model).to(dev)
+        l = copy.deepcopy(lm).to(dev) if lm is not None else None
+        r = beam.beam_search(m, feats.to(dev), lens.to(dev), cfg, 24, 4,
+                             True, l, lm_cfg)
+        res[dev.type] = [x.cpu() for x in r[:3]]
+    (ct, cl, cs), (gt, gl, gs) = res["cpu"], res["cuda"]
+    real = cs > beam.NEG / 2
+    assert real[:, 0].all()
+    torch.testing.assert_close(gl[:, 0], cl[:, 0], rtol=0, atol=0)
+    for b in range(4):
+        torch.testing.assert_close(gt[b, 0, :cl[b, 0]], ct[b, 0, :cl[b, 0]],
+                                   rtol=0, atol=0)
+    assert torch.equal(gs > beam.NEG / 2, real)
+    torch.testing.assert_close(gs[real], cs[real], rtol=1e-4, atol=1e-6)
