@@ -19,10 +19,10 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from automatic_speech_recognition_tpu.config import Config
-from automatic_speech_recognition_tpu.data.audio_io import read_audio
-from automatic_speech_recognition_tpu.utils.text import convert_idx_to_string
-from automatic_speech_recognition_tpu.utils.tokenizer import get_tokenizer
+from automatic_speech_recognition_torch.config import Config
+from automatic_speech_recognition_torch.data.audio_io import read_audio
+from automatic_speech_recognition_torch.utils.text import convert_idx_to_string
+from automatic_speech_recognition_torch.utils.tokenizer import get_tokenizer
 
 from .decoding import beam as beam_lib
 from .models import char_rnn

@@ -38,13 +38,13 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from automatic_speech_recognition_tpu.config import (
+from automatic_speech_recognition_torch.config import (
     Config, apply_saved_model_config, check_model_config, parse_args)
-from automatic_speech_recognition_tpu.data.shards import ShardReader
-from automatic_speech_recognition_tpu.utils.text import (
+from automatic_speech_recognition_torch.data.shards import ShardReader
+from automatic_speech_recognition_torch.utils.text import (
     convert_idx_to_string, corpus_cer, edit_distance)
-from automatic_speech_recognition_tpu.utils.tokenizer import get_tokenizer
-from automatic_speech_recognition_tpu.utils.watchdog import StallWatchdog
+from automatic_speech_recognition_torch.utils.tokenizer import get_tokenizer
+from automatic_speech_recognition_torch.utils.watchdog import StallWatchdog
 
 from .decoding import beam as beam_lib
 from .models import char_rnn

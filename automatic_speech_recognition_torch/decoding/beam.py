@@ -48,8 +48,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from automatic_speech_recognition_tpu.config import Config
-from automatic_speech_recognition_tpu.utils.tokenizer import (EOS_ID, PAD_ID,
+from automatic_speech_recognition_torch.config import Config
+from automatic_speech_recognition_torch.utils.tokenizer import (EOS_ID, PAD_ID,
                                                                SOS_ID)
 
 from ..models import char_rnn, las

@@ -11,7 +11,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from automatic_speech_recognition_tpu.config import Config
+from automatic_speech_recognition_torch.config import Config
 
 from ..models.las import LAS
 

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from automatic_speech_recognition_tpu.utils.text import lm_vocab
+from automatic_speech_recognition_torch.utils.text import lm_vocab
 
 from ..ops import layers as L
 from ..training.checkpoint import CheckpointManager

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from automatic_speech_recognition_tpu.config import Config
+from automatic_speech_recognition_torch.config import Config
 
 from ..ops import layers as L
 from . import char_rnn, las

@@ -32,8 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from automatic_speech_recognition_tpu.config import Config
-from automatic_speech_recognition_tpu.utils.tokenizer import PAD_ID, SOS_ID
+from automatic_speech_recognition_torch.config import Config
+from automatic_speech_recognition_torch.utils.tokenizer import PAD_ID, SOS_ID
 
 from ..ops import attention as att
 from ..ops import layers as L

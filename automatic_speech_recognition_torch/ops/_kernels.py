@@ -15,7 +15,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -41,26 +41,27 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+def library_path(name: str, source: Optional[Path] = None) -> Path:
+    src = (source or CSRC_DIR / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+def load(name: str, source: Optional[Path] = None) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (or of `source`, under `name`),
+    built first if needed."""
     with _lock:
         if name in _libs:
             return _libs[name]
-        out = library_path(name)
+        source = source or CSRC_DIR / f"{name}.cu"
+        out = library_path(name, source)
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                nvcc_command(CSRC_DIR / f"{name}.cu", tmp, _nvcc()),
-                capture_output=True, text=True)
+            proc = subprocess.run(nvcc_command(source, tmp, _nvcc()),
+                                  capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n"
+                raise RuntimeError(f"nvcc failed on {source}:\n"
                                    f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, out)
             build_log[name] = proc.stdout + proc.stderr

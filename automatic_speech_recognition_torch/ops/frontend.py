@@ -20,7 +20,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from automatic_speech_recognition_tpu.ops import frontend_host as host
+from automatic_speech_recognition_torch.ops import frontend_host as host
 
 EPS_CMVN = 2.0 ** -30
 EPS_ZERO = float(np.finfo(np.float64).eps)

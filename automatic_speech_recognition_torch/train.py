@@ -36,15 +36,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from automatic_speech_recognition_tpu.config import (
+from automatic_speech_recognition_torch.config import (
     Config, check_model_config, parse_args, save_config_snapshot)
-from automatic_speech_recognition_tpu.data.pipeline import (
+from automatic_speech_recognition_torch.data.pipeline import (
     BucketedLoader, DevicePrefetcher)
-from automatic_speech_recognition_tpu.training import monitor as monitor_lib
-from automatic_speech_recognition_tpu.utils import summary as summary_lib
-from automatic_speech_recognition_tpu.utils.text import convert_idx_to_string
-from automatic_speech_recognition_tpu.utils.tokenizer import get_tokenizer
-from automatic_speech_recognition_tpu.utils.watchdog import StallWatchdog
+from automatic_speech_recognition_torch.training import monitor as monitor_lib
+from automatic_speech_recognition_torch.utils import summary as summary_lib
+from automatic_speech_recognition_torch.utils.text import convert_idx_to_string
+from automatic_speech_recognition_torch.utils.tokenizer import get_tokenizer
+from automatic_speech_recognition_torch.utils.watchdog import StallWatchdog
 
 from .training import trainer
 from .training.checkpoint import CheckpointManager

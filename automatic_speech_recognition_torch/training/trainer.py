@@ -24,8 +24,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from automatic_speech_recognition_tpu.config import Config
-from automatic_speech_recognition_tpu.utils.tokenizer import EOS_ID
+from automatic_speech_recognition_torch.config import Config
+from automatic_speech_recognition_torch.utils.tokenizer import EOS_ID
 
 from ..models import las
 from ..models.las import LAS

@@ -23,7 +23,7 @@ import os
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from automatic_speech_recognition_tpu.config import (
+from automatic_speech_recognition_torch.config import (
     Config, apply_saved_model_config, build_parser)
 
 from .api import Recognizer

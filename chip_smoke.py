@@ -6,9 +6,19 @@
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds the fused frontend kernel from csrc/ with nvcc.
 2. Holds the kernel to its plain PyTorch version on the card (mfcc and
-   fbank, CMVN on and off, B = 8 at 1 to 32 s with ragged and sub-frame
-   rows, rtol 1e-4 / atol 2e-4) and to the NumPy speechpy golden on
-   synthesized speech (5e-3); times kernel and plain at 128 x 10 s.
+   fbank, CMVN on and off, rtol 1e-4 / atol 2e-4): B = 8 at 1 to 32 s
+   with ragged and sub-frame rows; B = 1 at 5 s and at 60 s; frame counts
+   on and between the kernel's tile edges; a batch whose rows are all
+   shorter than one tile; an odd subsegment (15 kHz) and whole frames
+   (11025 Hz).  Then to the NumPy speechpy golden on synthesized speech
+   (5e-3).  Counts the HMMA (tensor-core) instructions of the built
+   library (cuobjdump -sass).  Times the kernel, the previous kernel
+   (built from a scratch copy of its source at BASELINE_SOURCE, when one
+   is there) and the plain version in turns at 128 x 10 s and the serving
+   and training shapes, each beside its bound; each pass's device time at
+   8 x 32 s from a torch.profiler trace; and torch.stft's power spectrum
+   of the same frames at 128 x 10 s, a yardstick for the spectrum stage
+   only.
 3. Serves >= 12 concurrent synthesized requests through
    BatchingRecognizer at the published width (run.sh: cnn listener
    4 x 512, location attention 128 / K 201 / 10 channels, speller
@@ -56,6 +66,7 @@ training and beam runs.  Without CUDA it exits non-zero.
 from __future__ import annotations
 
 import copy
+import ctypes
 import glob
 import json
 import os
@@ -64,17 +75,18 @@ import sys
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from automatic_speech_recognition_tpu.config import Config
-from automatic_speech_recognition_tpu.data import shards
-from automatic_speech_recognition_tpu.data.pipeline import BucketedLoader
-from automatic_speech_recognition_tpu.ops import frontend_host as host
-from automatic_speech_recognition_tpu.utils.formant_synth import (
+from automatic_speech_recognition_torch.config import Config
+from automatic_speech_recognition_torch.data import shards
+from automatic_speech_recognition_torch.data.pipeline import BucketedLoader
+from automatic_speech_recognition_torch.ops import frontend_host as host
+from automatic_speech_recognition_torch.utils.formant_synth import (
     PHONES, synth_phones)
-from automatic_speech_recognition_tpu.utils.tokenizer import (CharEncoder,
+from automatic_speech_recognition_torch.utils.tokenizer import (CharEncoder,
                                                                EOS_ID)
 from automatic_speech_recognition_torch import train as train_cli
 from automatic_speech_recognition_torch.api import Recognizer
@@ -94,6 +106,20 @@ GOLDEN_TOL = 5e-3                # tests/test_frontend_golden.py
 BUCKETS = [2, 4, 8, 16, 32]
 KERNEL_SOURCE = "automatic_speech_recognition_torch/csrc/fused_frontend.cu"
 REPLACES = "automatic_speech_recognition_tpu/ops/pallas_frontend.py:177"
+# the previous kernel's source, for timing in turns with the new one: a
+# scratch copy in a git-ignored directory, never committed
+BASELINE_SOURCE = Path("_baseline/fused_frontend.cu")
+H100_HBM = 3.35e12               # bytes/s, H100 SXM data sheet
+H100_TF32 = 495e12               # dense TF32 tensor-core FLOP/s
+# (name, batch, samples): bench.py's shape, serving's buckets of 8, and
+# the training buckets (frames < 200 / 800 / 1600) at their batch sizes
+TIMED_SHAPES = [("128 x 10 s", 128, 10 * SR),
+                ("serving 8 x 2 s", 8, 2 * SR),
+                ("serving 8 x 8 s", 8, 8 * SR),
+                ("serving 8 x 32 s", 8, 32 * SR),
+                ("training 96 x 2.025 s", 96, 200 * 160 + 400),
+                ("training 48 x 8.025 s", 48, 800 * 160 + 400),
+                ("training 48 x 16.025 s", 48, 1600 * 160 + 400)]
 # training buckets in frames (frames < b): padded to 2.025, 8.025 and
 # 16.025 s; the default bucket_batch_sizes give them 96, 48 and 48 rows
 TRAIN_BUCKETS = (200, 800, 1600)
@@ -170,30 +196,104 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     return float(err.max())
 
 
-def phase_kernel(dev, card: str):
-    """Kernel vs plain on the card; returns (max_abs_err, ms, plain_ms)."""
-    rng = np.random.default_rng(0)
+def frontend_work(p, B: int, S: int, T: int, D: int):
+    """(bytes, operations) the fused frontend must move and do at this
+    shape: audio read once, (B, T, D, 3) features written once, featlen;
+    the shared-subsegment DFT, the twiddle combine, the power spectrum,
+    the mel filterbank's nonzeros and the DCT (PERF.md, bring_up table)."""
+    nbytes = 4 * (B * S + B * T * D * 3 + B)
+    nseg = p["step"] * (T - 1) + p["J"]
+    per_utt = (2 * nseg * p["slen"] * 2 * p["nbins"]          # segment DFT
+               + 8 * T * p["nbins"] * p["J"]                   # combine
+               + 3 * T * p["nbins"]                            # |X|^2 / N
+               + 2 * T * len(p["melw"])                        # mel
+               + 2 * T * p["F"] * (D - 1))                     # DCT
+    return nbytes, B * per_utt
+
+
+def bound(p, B: int, S: int, T: int, D: int):
+    """(bound ms, 'bytes' or 'operations'): the larger of the bytes over
+    HBM's rate and the operations over the TF32 tensor-core peak."""
+    nbytes, ops = frontend_work(p, B, S, T, D)
+    t_bytes, t_ops = nbytes / H100_HBM * 1e3, ops / H100_TF32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_vs_plain(dev, audio, audiolen, name: str, sample_rate: int = SR):
+    """The kernel against the plain version in every mode; max abs err."""
+    worst = 0.0
+    for feat_type in ("mfcc", "fbank"):
+        for cmvn in (True, False):
+            kw = dict(feat_dim=13, feat_type=feat_type, apply_cmvn=cmvn,
+                      sample_rate=sample_rate)
+            fk, lk = frontend.extract_features(audio, audiolen,
+                                               use_kernel=True, **kw)
+            fp, lp = frontend.extract_features(audio, audiolen, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(lk, lp):
+                raise AssertionError(f"{name}: featlen differs")
+            case = f"{name} {feat_type} cmvn={cmvn} T={fk.shape[1]}"
+            err = check_close(case, fk, fp, RTOL, ATOL)
+            worst = max(worst, err)
+            print(f"kernel vs plain  {case:44s} max_abs_err {err:.3e}")
+    return worst
+
+
+def tile_frames(dev, B: int, S: int) -> int:
+    """Frames of one pass-1 work item at this shape (16 kHz, mfcc 13)."""
+    p = cuda_frontend.plan(400, 160, 512, 13, "mfcc", 40, SR)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return cuda_frontend.tiling(p, B, host.num_frames(S, 400, 160), sms,
+                                13).tt
+
+
+def noise(rng, B: int, S: int, dev) -> torch.Tensor:
+    return torch.from_numpy((rng.standard_normal((B, S)) * 0.1)
+                            .astype(np.float32)).to(dev)
+
+
+def kernel_cases(dev, rng) -> float:
+    """Every case the kernel is held to its plain version on."""
     worst = 0.0
     for seconds in (1, 2, 4, 8, 10, 16, 32):
         S = seconds * SR
-        audio = torch.from_numpy((rng.standard_normal((8, S)) * 0.1)
-                                 .astype(np.float32)).to(dev)
-        audiolen = torch.tensor([S] * 6 + [S // 2, 300], device=dev)
-        for feat_type in ("mfcc", "fbank"):
-            for cmvn in (True, False):
-                kw = dict(feat_dim=13, feat_type=feat_type, apply_cmvn=cmvn)
-                fk, lk = frontend.extract_features(audio, audiolen,
-                                                   use_kernel=True, **kw)
-                fp, lp = frontend.extract_features(audio, audiolen, **kw)
-                torch.cuda.synchronize()
-                if not torch.equal(lk, lp):
-                    raise AssertionError("featlen differs")
-                name = f"{seconds}s {feat_type} cmvn={cmvn} T={fk.shape[1]}"
-                err = check_close(name, fk, fp, RTOL, ATOL)
-                worst = max(worst, err)
-                print(f"kernel vs plain  {name:28s} max_abs_err {err:.3e}")
+        worst = max(worst, kernel_vs_plain(
+            dev, noise(rng, 8, S, dev),
+            torch.tensor([S] * 6 + [S // 2, 300], device=dev), f"{seconds}s"))
+    flen, fstride = host.frame_params(SR, 25, 10)
+    worst = max(worst, kernel_vs_plain(
+        dev, noise(rng, 1, 5 * SR, dev),
+        torch.tensor([5 * SR - 999], device=dev), "B=1 5s"))
+    worst = max(worst, kernel_vs_plain(
+        dev, noise(rng, 1, 60 * SR, dev),
+        torch.tensor([60 * SR], device=dev), "B=1 60s"))
+    S = 4 * SR
+    tt = tile_frames(dev, 8, S)
+    frames = [tt, 3 * tt, 2 * tt + tt // 2, 5 * tt - 1, 4 * tt + 1, 7 * tt,
+              tt // 2, 6 * tt]                       # tile edges, mid-tile
+    worst = max(worst, kernel_vs_plain(
+        dev, noise(rng, 8, S, dev),
+        torch.tensor([f * fstride + flen for f in frames], device=dev),
+        f"tile edges (tile {tt})"))
+    lens = [flen - 1, flen, flen + fstride * (tt // 2), 100, 300,
+            flen + fstride * (tt - 1), 1, flen + 7]    # all under one tile
+    worst = max(worst, kernel_vs_plain(
+        dev, noise(rng, 8, S, dev), torch.tensor(lens, device=dev),
+        f"rows under one tile ({tt})"))
+    worst = max(worst, kernel_vs_plain(
+        dev, noise(rng, 8, 4 * 15000, dev),
+        torch.tensor([4 * 15000] * 7 + [20000], device=dev),
+        "odd g (15 kHz)", 15000))
+    worst = max(worst, kernel_vs_plain(
+        dev, noise(rng, 8, 4 * 11025, dev),
+        torch.tensor([4 * 11025] * 7 + [20000], device=dev),
+        "whole frames (11025 Hz)", 11025))
+    return worst
 
-    # the speechpy golden (float64 NumPy) on synthesized speech
+
+def golden(dev, rng) -> None:
+    """The kernel against the speechpy golden (float64 NumPy) on
+    synthesized speech."""
     sigs = [speech(rng, 2.5), speech(rng, 4.0)]
     S = -(-max(map(len, sigs)) // SR) * SR
     audio = np.zeros((2, S), np.float32)
@@ -212,29 +312,177 @@ def phase_kernel(dev, card: str):
         print(f"kernel vs speechpy golden utt {i} ({len(s) / SR:.2f}s) "
               f"max_abs_err {err:.3e}")
 
-    # time at the bench.py shape: 128 x 10 s, mfcc 13 + CMVN + deltas
+
+def baseline_kernel(dev):
+    """The previous kernel, built from a scratch copy of its source when
+    one lies at BASELINE_SOURCE (never committed), for timing in turns
+    with the new one; None without it."""
+    if not BASELINE_SOURCE.exists():
+        print(f"previous kernel: not timed (no source at {BASELINE_SOURCE})")
+        return None
+    lib = _kernels.load("fused_frontend_baseline", BASELINE_SOURCE)
+    fn = lib.asr_fused_frontend
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    p = cuda_frontend.plan(400, 160, 512, 13, "mfcc", 40, SR)
+    ang = 2.0 * np.pi * np.arange(512) / 512
+    consts = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+              for a in (np.stack([np.cos(ang), np.sin(ang)], 1), p["mel"],
+                        p["dct"])]
+    bins = torch.from_numpy(p["bins"]).to(dev)
+
+    def run(audio, featlen, T):
+        B, S = audio.shape
+        raw = torch.empty((B, T, 13), device=dev)
+        out = torch.empty((B, T, 13, 3), device=dev)
+        rc = fn(audio.data_ptr(), featlen.data_ptr(), bins.data_ptr(),
+                *(c.data_ptr() for c in consts), raw.data_ptr(),
+                out.data_ptr(), B, S, T, 400, 160, 512, len(p["bins"]),
+                p["ksup"], p["F"], 13, 1, 1,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"previous kernel launch failed: {rc}")
+        return out
+    print(f"previous kernel built from {BASELINE_SOURCE}:\n"
+          f"{_kernels.build_log.get('fused_frontend_baseline', '').strip()}")
+    return run
+
+
+def kernel_ms(fn, names, reps: int = 20) -> dict:
+    """Mean device ms per launch of each kernel whose name holds one of
+    `names`, from a torch.profiler trace of reps calls of fn, each of
+    which must launch it once."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = device_intervals(prof.events())
+    res = {}
+    for name in names:
+        hits = [e.time_range.elapsed_us() for e in events if name in e.name]
+        if len(hits) != reps:
+            raise AssertionError(f"the trace holds {len(hits)} launches of "
+                                 f"{name}, expected {reps}")
+        res[name] = sum(hits) / reps / 1e3
+    return res
+
+
+def in_turns(fns: dict, reps: int, rounds: int = 3) -> dict:
+    """Median ms per call of each function, timed in turns: plain, new,
+    old, old, new, plain (CUDA events, reps calls a reading)."""
+    order = [k for k in ("plain", "kernel", "old", "old", "kernel", "plain")
+             if k in fns]
+    runs = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k in order:
+            runs[k].append(cuda_ms(fns[k], reps))
+    return {k: (float(np.median(v)), [round(x, 4) for x in v])
+            for k, v in runs.items()}
+
+
+def hmma_count() -> int:
+    """HMMA instructions in the built kernel library (cuobjdump -sass)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass",
+                           str(_kernels.library_path("fused_frontend"))],
+                          capture_output=True, text=True, check=True).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
+
+
+def phase_kernel(dev, card: str) -> dict:
+    """Kernel vs plain and golden on the card; times at the main path's
+    shapes (new, previous and plain in turns), pass 2 alone, the stft
+    yardstick, the HMMA count; returns the kernel line's numbers."""
+    rng = np.random.default_rng(0)
+    worst = kernel_cases(dev, rng)
+    golden(dev, rng)
+    hmma = hmma_count()
+    print(f"HMMA instructions in the built fused_frontend library: {hmma}")
+    if hmma == 0:
+        raise AssertionError("the built kernel has no tensor-core (HMMA) "
+                             "instruction")
+    old = baseline_kernel(dev)
+    p = cuda_frontend.plan(400, 160, 512, 13, "mfcc", 40, SR)
+    res = {}
+    for name, B, S in TIMED_SHAPES:
+        T = host.num_frames(S, 400, 160)
+        audio = noise(rng, B, S, dev)
+        featlen = torch.full((B,), T, dtype=torch.int32, device=dev)
+        kw = dict(flen=400, fstride=160, fft_length=512, feat_dim=13,
+                  feat_type="mfcc", num_mel_filters=40, sample_rate=SR,
+                  frames_max=T, apply_cmvn=True)
+        fns = {"kernel": lambda: cuda_frontend.fused_frontend(audio, featlen,
+                                                              **kw),
+               "plain": lambda: frontend.reference_features(audio, featlen,
+                                                            **kw)}
+        want = fns["plain"]()
+        check_close(f"{name} new", fns["kernel"](), want, RTOL, ATOL)
+        if old is not None:
+            fns["old"] = lambda: old(audio, featlen, T)
+            check_close(f"{name} previous", fns["old"](), want, RTOL, ATOL)
+        times = in_turns(fns, 10 if B * S > 8 * 32 * SR else 50)
+        b_ms, b_by = bound(p, B, S, T, 13)
+        ms = times["kernel"][0]
+        old_txt = (f"previous {times['old'][0]:.4f} ms (runs "
+                   f"{times['old'][1]}), " if "old" in times else "")
+        print(f"frontend {name} mfcc13+cmvn+deltas, T {T} [{card}]: new "
+              f"{ms:.4f} ms (runs {times['kernel'][1]}), {old_txt}plain "
+              f"{times['plain'][0]:.4f} ms (runs {times['plain'][1]}); bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}), share {b_ms / ms:.4f}")
+        res[name] = dict(ms=ms, plain_ms=times["plain"][0],
+                         old_ms=times["old"][0] if "old" in times else None,
+                         bound_ms=b_ms, bound_by=b_by)
+        del audio, fns, want
+
+    # each pass's device time at serving's 8 x 32 s, from a trace of
+    # whole calls
+    S = 32 * SR
+    T = host.num_frames(S, 400, 160)
+    audio = noise(rng, 8, S, dev)
+    featlen = torch.full((8,), T, dtype=torch.int32, device=dev)
+    t = kernel_ms(lambda: cuda_frontend.fused_frontend(
+        audio, featlen, flen=400, fstride=160, fft_length=512, feat_dim=13,
+        feat_type="mfcc", num_mel_filters=40, sample_rate=SR, frames_max=T,
+        apply_cmvn=True), ("features_kernel", "cmvn_deltas_kernel"))
+    pass2_ms = t["cmvn_deltas_kernel"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"device time per launch at 8 x 32 s (torch.profiler, 20 calls) "
+          f"[{card}]: pass 2 (CMVN + deltas) {pass2_ms:.4f} ms, "
+          f"{-(-T // cuda_frontend.pass2_frames(13))} blocks per utterance; "
+          f"pass 1 {t['features_kernel']:.4f} ms, tiling "
+          f"{cuda_frontend.tiling(p, 8, T, sms, 13)}")
+
+    # yardstick for the spectrum stage only: torch.stft's power spectrum
+    # of the same frames at 128 x 10 s (a 400-sample ones window centred
+    # in 512: 56 samples of padding on the left line it up)
     B, S = 128, 10 * SR
-    audio = torch.from_numpy((rng.standard_normal((B, S)) * 0.1)
-                             .astype(np.float32)).to(dev)
-    flen, fstride = host.frame_params(SR, 25, 10)
-    T = host.num_frames(S, flen, fstride)
-    featlen = torch.full((B,), T, dtype=torch.int32, device=dev)
-    kw = dict(flen=flen, fstride=fstride, fft_length=512, feat_dim=13,
-              feat_type="mfcc", num_mel_filters=40, sample_rate=SR,
-              frames_max=T, apply_cmvn=True)
-    kernel = lambda: cuda_frontend.fused_frontend(audio, featlen, **kw)
-    plain = lambda: frontend.reference_features(audio, featlen, **kw)
-    check_close("128x10s", kernel(), plain(), RTOL, ATOL)
-    times = {"kernel": [], "plain": []}
-    for _ in range(3):                      # plain, kernel, kernel, plain
-        for which in ("plain", "kernel", "kernel", "plain"):
-            times[which].append(cuda_ms(kernel if which == "kernel"
-                                        else plain, 10))
-    ms, plain_ms = (float(np.median(times[k])) for k in ("kernel", "plain"))
-    print(f"frontend 128 x 10 s mfcc13+cmvn+deltas [{card}]: kernel "
-          f"{ms:.4f} ms/batch (runs {times['kernel']}), plain {plain_ms:.4f} "
-          f"ms/batch (runs {times['plain']})")
-    return worst, ms, plain_ms
+    T = host.num_frames(S, 400, 160)
+    audio = noise(rng, B, S, dev)
+    need = 512 + (T - 1) * 160                 # exactly T frames
+    xp = torch.nn.functional.pad(audio, (56, max(need - 56 - S, 0)))[:, :need]
+    win = torch.ones(400, device=dev)
+    spec = lambda: torch.stft(xp, 512, hop_length=160, win_length=400,
+                              window=win, center=False,
+                              return_complex=True).abs().square() / 512
+    got = spec()[:2].transpose(1, 2)
+    want = frontend.power_spectrum(frontend.frame_signal(audio[:2], 400, 160,
+                                                         T), 512)
+    check_close("stft yardstick spectrum", got / want.max(),
+                want / want.max(), 1e-4, 1e-5)
+    stft_ms = float(np.median([cuda_ms(spec, 10) for _ in range(3)]))
+    print(f"stft power spectrum of the same frames at 128 x 10 s [{card}]: "
+          f"{stft_ms:.4f} ms (the spectrum stage only; no PyTorch call "
+          f"computes the whole function)")
+    main = res[TIMED_SHAPES[0][0]]
+    return dict(max_abs_err=worst, **main, share=main["bound_ms"] / main["ms"],
+                pass2_ms=pass2_ms, stft_ms=stft_ms, hmma=hmma,
+                shapes=res)
 
 
 class CheckedRecognizer(Recognizer):
@@ -789,15 +1037,20 @@ def main() -> int:
     print(f"fused_frontend build + load: {time.perf_counter() - t0:.2f} s")
     print(_kernels.build_log.get("fused_frontend", "(already built)").strip())
 
-    worst, ms, plain_ms = phase_kernel(dev, card)
+    k = phase_kernel(dev, card)
     launches = phase_serving(dev, card)
     launches += phase_train(dev, card)
     launches += phase_beam(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_frontend", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": worst,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "replaces": REPLACES, "launches": launches,
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "share": k["share"], "library_ms": None,
+        "previous_ms": k["old_ms"], "stft_spectrum_ms": k["stft_ms"],
+        "pass2_ms_8x32s": k["pass2_ms"], "hmma": k["hmma"],
+        "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

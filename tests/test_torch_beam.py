@@ -16,15 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from automatic_speech_recognition_tpu.config import Config
 from automatic_speech_recognition_tpu.decoding import beam as jbeam
 from automatic_speech_recognition_tpu.models import char_rnn as jcr
+from automatic_speech_recognition_torch.config import Config
 from automatic_speech_recognition_torch.decoding import beam as tbeam
 from automatic_speech_recognition_torch.models import char_rnn as tcr
 from automatic_speech_recognition_torch.models import convert
 from automatic_speech_recognition_torch.training import trainer
 
-from test_torch_las import jax_model
+from test_torch_las import jax_cfg, jax_model
 
 CPU = torch.device("cpu")
 # tests/test_beam_search.py's width, location attention, T <= 32 frames
@@ -62,7 +62,7 @@ def run_both(cfg, K, logprob, seed=0, lens=(32, 23), lm=None,
         np.float32)
     max_steps = max(int(cfg.convert_rate * T), 1)
     (jlm, jlm_cfg), (tlm, tlm_cfg) = lm if lm else ((None, None),) * 2
-    want = jbeam.beam_search(params, state, x, lens, cfg, max_steps=max_steps,
+    want = jbeam.beam_search(params, state, x, lens, jax_cfg(cfg), max_steps=max_steps,
                              beam_size=K, logprob=logprob, lm_params=jlm,
                              lm_cfg=jlm_cfg)
     got = tbeam.beam_search(convert.from_jax_params(params, state, cfg, CPU),

@@ -1,8 +1,10 @@
-"""Boundaries of the PyTorch port: it never imports JAX, never hands back
+"""Boundaries of the PyTorch port: it never imports JAX nor the JAX
+package (not even its framework-free modules), never hands back
 the CPU for a requested GPU, chip_smoke.py refuses to run without CUDA or
 outside the repository, and the kernel build targets sm_90a into a
 git-ignored directory."""
 
+import ast
 import os
 import pkgutil
 import shutil
@@ -10,7 +12,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 import automatic_speech_recognition_torch as port
+from automatic_speech_recognition_torch.data import _native
 from automatic_speech_recognition_torch.ops import _kernels
 
 REPO = Path(__file__).resolve().parent.parent
@@ -24,21 +29,48 @@ def _run(code_or_args, cwd=REPO, env=None):
                           capture_output=True, text=True, timeout=240)
 
 
-def test_every_port_module_imports_without_jax():
+def test_every_port_module_imports_without_jax_or_the_jax_package():
     names = [m.name for m in pkgutil.walk_packages(port.__path__,
                                                    port.__name__ + ".")]
     assert "automatic_speech_recognition_torch.ops.cuda_frontend" in names
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
+            "sys.modules['automatic_speech_recognition_tpu'] = None\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
-            "import chip_smoke\n"
-            "assert not any(m == 'jax' or m.startswith('jax.')\n"
+            "import chip_smoke, frontend_profile\n"
+            "assert not any(m.split('.')[0] in ('jax',\n"
+            "               'automatic_speech_recognition_tpu')\n"
             "               for m in sys.modules if sys.modules[m])\n"
             "print('ok', len(sys.modules))\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+PORT_SOURCES = sorted(
+    [p for p in (REPO / "automatic_speech_recognition_torch").rglob("*.py")
+     if "_build" not in p.parts]
+    + [REPO / "chip_smoke.py", REPO / "frontend_profile.py"])
+FORBIDDEN = ("jax", "automatic_speech_recognition_tpu")
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_source_of_the_port_names_jax_or_the_jax_package(path):
+    """An AST scan: no `import` or `from` of either, at any depth (lazy
+    imports inside functions included)."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [(node.lineno, n) for n in names
+                  if n.split(".")[0] in FORBIDDEN]
+    assert not found, f"{path.relative_to(REPO)} imports {found}"
 
 
 def test_resolve_device_never_falls_back_to_the_cpu():
@@ -87,3 +119,14 @@ def test_kernel_build_targets_sm90a_into_an_ignored_directory(tmp_path):
     proc = subprocess.run(["git", "check-ignore", "-q", "--no-index",
                            str(rel)], cwd=tmp_path)
     assert proc.returncode == 0, f"{rel} is not git-ignored"
+
+
+def test_host_natives_build_from_the_port_into_an_ignored_directory():
+    """The shard and FLAC libraries come from the port's csrc/ copies, built
+    by the host C++ compiler with native/Makefile's flags into _build/."""
+    for lib in ("libshardio.so", "libflacdec.so"):
+        src = _native.source_path(lib)
+        assert src.parent == _native.CSRC_DIR and src.exists(), src
+        assert _native.library_path(lib).parent == _kernels.BUILD_DIR
+        cmd = _native.cxx_command(src, _native.library_path(lib))
+        assert {"-O3", "-std=c++17", "-fPIC", "-shared"} <= set(cmd)

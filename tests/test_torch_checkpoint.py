@@ -16,7 +16,7 @@ from automatic_speech_recognition_torch.training import trainer
 from automatic_speech_recognition_torch.training.checkpoint import (
     CheckpointManager)
 
-from test_torch_las import small_cfg
+from test_torch_las import jax_cfg, small_cfg
 from test_torch_train import make_batch
 
 CPU = torch.device("cpu")
@@ -103,7 +103,7 @@ def test_restore_for_eval_hands_jax_the_trained_weights(tmp_path, rng):
     fresh = trainer.create_train_state(cfg.replace(seed=3), CPU).model
     params, bn_state = cm.restore_for_eval(fresh)
     x, xl = batch[0].numpy(), batch[1].numpy()
-    want, _ = jtrainer.eval_forward(params, bn_state, x, xl, cfg, 6)
+    want, _ = jtrainer.eval_forward(params, bn_state, x, xl, jax_cfg(cfg), 6)
     got, _ = trainer.eval_forward(ts.model, batch[0], batch[1], cfg, 6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)

@@ -22,7 +22,7 @@ from automatic_speech_recognition_torch.decoding import ctc as tctc
 from automatic_speech_recognition_torch.decoding import ctc_prefix as tcp
 from automatic_speech_recognition_torch.models import convert
 
-from test_torch_las import jax_model, small_cfg
+from test_torch_las import jax_cfg, jax_model, small_cfg
 
 ATOL, RTOL = 1e-5, 1e-6
 jstep = jax.jit(jcp.step)
@@ -141,7 +141,7 @@ def test_ctc_greedy_decode_matches_jax(rng, seed):
     params, state = jax_model(cfg, rng, seed)
     x = rng.standard_normal((3, 41, 13, 3)).astype(np.float32)
     xl = np.array([41, 30, 9], np.int32)
-    want_tok, want_len = jctc.ctc_greedy_decode(params, state, x, xl, cfg)
+    want_tok, want_len = jctc.ctc_greedy_decode(params, state, x, xl, jax_cfg(cfg))
     model = convert.from_jax_params(params, state, cfg, CPU)
     got_tok, got_len = tctc.ctc_greedy_decode(
         model, torch.from_numpy(x), torch.from_numpy(xl), cfg)

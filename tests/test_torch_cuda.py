@@ -13,12 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from automatic_speech_recognition_tpu.config import Config
-from automatic_speech_recognition_tpu.utils.tokenizer import CharEncoder
 from automatic_speech_recognition_torch.api import Recognizer
+from automatic_speech_recognition_torch.config import Config
 from automatic_speech_recognition_torch.models import las
 from automatic_speech_recognition_torch.ops import cuda_frontend
 from automatic_speech_recognition_torch.ops import frontend
+from automatic_speech_recognition_torch.utils.tokenizer import CharEncoder
 
 RTOL, ATOL = 1e-4, 2e-4
 SR = 16000
@@ -171,3 +171,44 @@ def test_beam_on_cuda_matches_cpu(cuda, mode):
                                    rtol=0, atol=0)
     assert torch.equal(gs > beam.NEG / 2, real)
     torch.testing.assert_close(gs[real], cs[real], rtol=1e-4, atol=1e-6)
+
+
+def _tile_frames(B, S, sr, dev):
+    from automatic_speech_recognition_torch.ops import frontend_host as host
+    flen, fstride = host.frame_params(sr, 25, 10)
+    p = cuda_frontend.plan(flen, fstride, 512, 13, "mfcc", 40, sr)
+    T = host.num_frames(S, flen, fstride)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return flen, fstride, cuda_frontend.tiling(p, B, T, sms, 13).tt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_utterance_60s", "tile_edges",
+                                  "all_rows_under_one_tile", "odd_g_15khz",
+                                  "whole_frames_11025hz"])
+@pytest.mark.parametrize("feat_type", ["mfcc", "fbank"])
+def test_subsegment_kernel_edge_cases(cuda, feat_type, case):
+    """The redesigned kernel (subsegment DFT on tensor cores, persistent
+    tiles, CMVN from per-tile partials) against the plain version."""
+    sr = {"odd_g_15khz": 15000, "whole_frames_11025hz": 11025}.get(case, SR)
+    rng = np.random.default_rng(7)
+    B, S = (1, 60 * sr) if case == "one_utterance_60s" else (8, 4 * sr)
+    flen, fstride, tt = _tile_frames(B, S, sr, cuda)
+    if case == "tile_edges":
+        frames = [tt, 3 * tt, 2 * tt + tt // 2, 5 * tt - 1, 1, 0, 7, 4 * tt]
+        lens = [f * fstride + flen for f in frames]
+    elif case == "all_rows_under_one_tile":
+        lens = [flen - 1, flen, flen + fstride * (tt // 2), 100] * 2
+    else:
+        lens = [S] * (B - 1) + [S // 3] if B > 1 else [S - 12345]
+    audio = torch.from_numpy(
+        (rng.standard_normal((B, S)) * 0.1).astype(np.float32)).to(cuda)
+    audiolen = torch.tensor(lens, device=cuda)
+    for cmvn in (True, False):
+        kw = dict(feat_dim=13, feat_type=feat_type, apply_cmvn=cmvn,
+                  sample_rate=sr)
+        fk, lk = frontend.extract_features(audio, audiolen, use_kernel=True,
+                                           **kw)
+        fp, lp = frontend.extract_features(audio, audiolen, **kw)
+        torch.testing.assert_close(lk, lp, rtol=0, atol=0)
+        torch.testing.assert_close(fk, fp, rtol=RTOL, atol=ATOL)

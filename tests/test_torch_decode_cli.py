@@ -19,7 +19,6 @@ from automatic_speech_recognition_tpu.decoding import beam as jbeam
 from automatic_speech_recognition_tpu.models import char_rnn as jcr
 from automatic_speech_recognition_tpu.ops import frontend as jfe
 from automatic_speech_recognition_tpu.utils.text import convert_idx_to_string
-from automatic_speech_recognition_tpu.utils.tokenizer import CharEncoder
 from automatic_speech_recognition_torch import decode as decode_cli
 from automatic_speech_recognition_torch import train as train_cli
 from automatic_speech_recognition_torch import transcribe as transcribe_cli
@@ -28,8 +27,9 @@ from automatic_speech_recognition_torch.models import char_rnn as tcr
 from automatic_speech_recognition_torch.models import convert
 from automatic_speech_recognition_torch.ops import frontend
 from automatic_speech_recognition_torch.serving import BatchingRecognizer
+from automatic_speech_recognition_torch.utils.tokenizer import CharEncoder
 
-from test_torch_las import jax_model, small_cfg
+from test_torch_las import jax_cfg, jax_model, small_cfg
 
 SR = 16000
 CPU = torch.device("cpu")
@@ -230,8 +230,8 @@ def test_slice_matches_jax_end_to_end(rng, joint):
     for i, s in enumerate(sigs):
         audio[i, :len(s)] = s
     lens = np.array([len(s) for s in sigs], np.int32)
-    feats, featlen = jfe.extract_features_cfg(audio, lens, cfg)
-    res = jbeam.beam_search(params, state, feats, featlen, cfg,
+    feats, featlen = jfe.extract_features_cfg(audio, lens, jax_cfg(cfg))
+    res = jbeam.beam_search(params, state, feats, featlen, jax_cfg(cfg),
                             max_steps=int(cfg.convert_rate * feats.shape[1]),
                             beam_size=4, logprob=True, lm_params=lm_params,
                             lm_cfg=jcr.LMConfig(**lm_kw))

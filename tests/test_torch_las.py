@@ -7,14 +7,17 @@ Tolerance rtol 1e-5 / atol 1e-5: float32 on both sides, sums in another
 order.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
 import torch
 
-from automatic_speech_recognition_tpu.config import Config
+from automatic_speech_recognition_tpu.config import Config as JConfig
 from automatic_speech_recognition_tpu.models import las as jlas
 from automatic_speech_recognition_tpu.training import trainer as jtrainer
+from automatic_speech_recognition_torch.config import Config
 from automatic_speech_recognition_torch.models import convert
 from automatic_speech_recognition_torch.models import las as tlas
 from automatic_speech_recognition_torch.training import trainer as ttrainer
@@ -33,9 +36,16 @@ def small_cfg(**kw):
     return Config(**base)
 
 
+def jax_cfg(cfg):
+    """The JAX package's Config with the fields of the port's `cfg`: each
+    package runs on its own Config."""
+    return JConfig(**{f.name: getattr(cfg, f.name)
+                      for f in dataclasses.fields(cfg)})
+
+
 def jax_model(cfg, rng, seed=0):
     """las_init params (numpy) with non-trivial biases and BN state."""
-    params, state = jlas.las_init(jax.random.PRNGKey(seed), cfg)
+    params, state = jlas.las_init(jax.random.PRNGKey(seed), jax_cfg(cfg))
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
     params, state = to_np(params), to_np(state)
 
@@ -64,7 +74,7 @@ def test_listener_matches_jax(rng, apply_bn):
     params, state = jax_model(cfg, rng)
     x, xl = feats(rng)
     want, want_len, _ = jlas.listener_apply(
-        params["listener"], state["listener"], x, xl, cfg, is_training=False)
+        params["listener"], state["listener"], x, xl, jax_cfg(cfg), is_training=False)
     model = convert.from_jax_params(params, state, cfg, CPU)
     with torch.no_grad():
         got, got_len = model.listener(torch.from_numpy(x),
@@ -83,7 +93,7 @@ def test_decode_step_matches_jax(rng):
     states = rng.standard_normal((2, B, 32)).astype(np.float32)
     emb = rng.standard_normal((B, 16)).astype(np.float32)
     align = rng.dirichlet(np.ones(T), B).astype(np.float32)
-    want = jlas.decode_step(sp, cfg, enc, enc_len, states, emb, align)
+    want = jlas.decode_step(sp, jax_cfg(cfg), enc, enc_len, states, emb, align)
     model = convert.from_jax_params(params, state, cfg, CPU)
     with torch.no_grad():
         got = tlas.decode_step(model.speller, *map(torch.from_numpy, (
@@ -98,7 +108,7 @@ def test_greedy_forward_matches_jax(rng, mode):
     params, state = jax_model(cfg, rng)
     x, xl = feats(rng)
     logits, _, alphas, enc_len, _ = jlas.las_forward(
-        params, state, x, xl, cfg, dec_steps=6, is_training=False)
+        params, state, x, xl, jax_cfg(cfg), dec_steps=6, is_training=False)
     model = convert.from_jax_params(params, state, cfg, CPU)
     with torch.no_grad():
         got_logits, got_alphas, got_len = model(torch.from_numpy(x),
@@ -113,7 +123,7 @@ def test_eval_forward_matches_jax(rng, margin):
     cfg = small_cfg(greedy_eos_margin=margin)
     params, state = jax_model(cfg, rng)
     x, xl = feats(rng)
-    logits, y_hat = jtrainer.eval_forward(params, state, x, xl, cfg, 8)
+    logits, y_hat = jtrainer.eval_forward(params, state, x, xl, jax_cfg(cfg), 8)
     model = convert.from_jax_params(params, state, cfg, CPU)
     got_logits, got_y = ttrainer.eval_forward(
         model, torch.from_numpy(x), torch.from_numpy(xl), cfg, 8)
@@ -163,7 +173,7 @@ def test_init_follows_the_jax_distributions():
     assert bn.scale.eq(1).all() and bn.var.eq(1).all() and bn.mean.eq(0).all()
     # same parameter set and shapes as the JAX pytree: the converter
     # accepts las_init's output for this config
-    params, state = jlas.las_init(jax.random.PRNGKey(0), cfg)
+    params, state = jlas.las_init(jax.random.PRNGKey(0), jax_cfg(cfg))
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
     convert.from_jax_params(to_np(params), to_np(state), cfg, CPU)
 

@@ -17,13 +17,13 @@ from automatic_speech_recognition_tpu.ops import frontend as jfe
 from automatic_speech_recognition_tpu.training import trainer as jtrainer
 from automatic_speech_recognition_tpu.utils.formant_synth import synth_phones
 from automatic_speech_recognition_tpu.utils.text import convert_idx_to_string
-from automatic_speech_recognition_tpu.utils.tokenizer import CharEncoder
 from automatic_speech_recognition_torch.api import Recognizer
 from automatic_speech_recognition_torch.models import convert
 from automatic_speech_recognition_torch.models import las as tlas
 from automatic_speech_recognition_torch.serving import (BatchingRecognizer,
                                                         _Request)
-from test_torch_las import jax_model, small_cfg
+from automatic_speech_recognition_torch.utils.tokenizer import CharEncoder
+from test_torch_las import jax_cfg, jax_model, small_cfg
 
 SR = 16000
 CPU = torch.device("cpu")
@@ -192,9 +192,9 @@ def test_slice_matches_jax_end_to_end(rng):
     for i, s in enumerate(sigs):
         audio[i, :len(s)] = s
     lens = np.array([len(s) for s in sigs], np.int32)
-    feats, featlen = jfe.extract_features_cfg(audio, lens, cfg)
+    feats, featlen = jfe.extract_features_cfg(audio, lens, jax_cfg(cfg))
     steps = max(int(cfg.convert_rate * feats.shape[1]), 1)
-    _, y_hat = jtrainer.eval_forward(params, state, feats, featlen, cfg,
+    _, y_hat = jtrainer.eval_forward(params, state, feats, featlen, jax_cfg(cfg),
                                      steps)
     want = [convert_idx_to_string(y, tok.id_to_token, cfg.unit)
             for y in np.asarray(y_hat)]

@@ -38,7 +38,7 @@ from automatic_speech_recognition_torch.models import las as tlas
 from automatic_speech_recognition_torch.ops import layers as TL
 from automatic_speech_recognition_torch.training import trainer as ttrainer
 
-from test_torch_las import jax_model, small_cfg
+from test_torch_las import jax_cfg, jax_model, small_cfg
 
 CPU = torch.device("cpu")
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -60,7 +60,7 @@ def make_batch(rng, B=3, T=41, L=7):
 
 def jax_state(cfg, params, state):
     return jtrainer.TrainState(params, state,
-                               jtrainer.make_optimizer(cfg).init(params),
+                               jtrainer.make_optimizer(jax_cfg(cfg)).init(params),
                                jnp.zeros((), jnp.int32),
                                jax.random.PRNGKey(0))
 
@@ -137,7 +137,7 @@ def test_training_forward_matches_jax(rng, apply_bn):
     params, state = jax_model(cfg, rng)
     x, xl, y, _ = make_batch(rng)
     logits, ctc_logits, alphas, enc_len, new_state = jlas.las_forward(
-        params, state, x, xl, cfg, y.shape[1], teacher=y, is_training=True)
+        params, state, x, xl, jax_cfg(cfg), y.shape[1], teacher=y, is_training=True)
     model = convert.from_jax_params(params, state, cfg, CPU).train()
     with torch.no_grad():
         got = tlas.las_forward(model, _t(x), _t(xl), cfg, y.shape[1],
@@ -158,12 +158,12 @@ def test_attention_loss_matches_jax(rng, smoothing):
     cfg = small_cfg(label_smoothing=smoothing)
     logits = rng.standard_normal((3, 6, 30)).astype(np.float32) * 3
     _, _, y, _ = make_batch(rng, L=8)
-    want = jlas.attention_loss(logits, y, cfg)
+    want = jlas.attention_loss(logits, y, jax_cfg(cfg))
     got = tlas.attention_loss(_t(logits), _t(y), cfg)
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
     # an all-PAD batch: 0, not NaN, on both sides
     pad = np.zeros_like(y)
-    assert float(jlas.attention_loss(logits, pad, cfg)) == 0.0
+    assert float(jlas.attention_loss(logits, pad, jax_cfg(cfg))) == 0.0
     assert tlas.attention_loss(_t(logits), _t(pad), cfg).item() == 0.0
 
 
@@ -182,7 +182,7 @@ def test_ctc_loss_matches_optax(rng, drop_last):
     y[2, :3] = [4, 4, 2]
     y[3, :4] = [8, 8, 9, 2]
     enc_len = np.array([9, 6, 3, 9], np.int32)
-    want = float(jlas.ctc_loss(logits, y, enc_len, cfg))
+    want = float(jlas.ctc_loss(logits, y, enc_len, jax_cfg(cfg)))
     lg = _t(logits).requires_grad_()
     got = tlas.ctc_loss(lg, _t(y), _t(enc_len), cfg)
     got.backward()
@@ -191,7 +191,7 @@ def test_ctc_loss_matches_optax(rng, drop_last):
     # then the feasible rows alone
     np.testing.assert_allclose(got.item(), want, rtol=1e-4)
     ok = [0, 1, 3]
-    want_ok = float(jlas.ctc_loss(logits[ok], y[ok], enc_len[ok], cfg))
+    want_ok = float(jlas.ctc_loss(logits[ok], y[ok], enc_len[ok], jax_cfg(cfg)))
     got_ok = tlas.ctc_loss(_t(logits[ok]), _t(y[ok]), _t(enc_len[ok]), cfg)
     np.testing.assert_allclose(got_ok.item(), want_ok, rtol=1e-5)
 
@@ -201,7 +201,7 @@ def test_ctc_drop_last_on_an_all_pad_batch_is_a_no_op(rng):
     logits = rng.standard_normal((2, 5, 31)).astype(np.float32)
     y = np.zeros((2, 3), np.int32)
     enc_len = np.array([5, 4], np.int32)
-    want = float(jlas.ctc_loss(logits, y, enc_len, cfg))
+    want = float(jlas.ctc_loss(logits, y, enc_len, jax_cfg(cfg)))
     got = tlas.ctc_loss(_t(logits), _t(y), _t(enc_len), cfg).item()
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
@@ -212,7 +212,7 @@ def test_learning_rate_schedule_matches_jax():
     for step in (0, 1, 49, 50, 51, 150, 333, 1000, 10_000):
         np.testing.assert_allclose(
             tlas.scheduled_learning_rate(cfg, step).item(),
-            float(jlas.scheduled_learning_rate(cfg, step)), rtol=1e-6)
+            float(jlas.scheduled_learning_rate(jax_cfg(cfg), step)), rtol=1e-6)
 
 
 def test_sampling_rate_schedule_matches_jax():
@@ -220,10 +220,10 @@ def test_sampling_rate_schedule_matches_jax():
     for step in (0, 10, 11, 60, 109, 110, 500):
         np.testing.assert_allclose(
             tlas.scheduled_sampling_rate(cfg, step).item(),
-            float(jlas.scheduled_sampling_rate(cfg, step)), rtol=1e-6)
+            float(jlas.scheduled_sampling_rate(jax_cfg(cfg), step)), rtol=1e-6)
     bad = small_cfg(warmup_step=10, max_step=10)
     with pytest.raises(ValueError, match="max_step > warmup_step"):
-        jlas.scheduled_sampling_rate(bad, 0)
+        jlas.scheduled_sampling_rate(jax_cfg(bad), 0)
     with pytest.raises(ValueError, match="max_step > warmup_step"):
         tlas.scheduled_sampling_rate(bad, 0)
 
@@ -297,7 +297,7 @@ def test_optimizer_matches_optax_on_identical_gradients(rng, accum):
                     lr_min_ratio=0.01)
     shapes = [(4, 3), (5,), (2, 2, 3)]
     params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
-    tx = jtrainer.make_optimizer(cfg)
+    tx = jtrainer.make_optimizer(jax_cfg(cfg))
     jp = [jnp.asarray(p) for p in params]
     st = tx.init(jp)
     tp = [torch.nn.Parameter(_t(p.copy())) for p in params]
@@ -344,7 +344,7 @@ def test_train_step_matches_jax(rng, steps, ctc):
     ts = port_state(cfg, params, state)
     tb = tuple(map(_t, batch))
     for _ in range(steps):
-        jts, jm = jtrainer.train_step(jts, batch, cfg, dec_steps=7)
+        jts, jm = jtrainer.train_step(jts, batch, jax_cfg(cfg), dec_steps=7)
         m = ttrainer.train_step(ts, tb, cfg)
         for k in ("loss", "grad_norm", "lr", "tf_rate", "att_peak"):
             np.testing.assert_allclose(m[k].item(), float(jm[k]), rtol=1e-4,
@@ -363,7 +363,7 @@ def test_grad_accumulation_matches_jax(rng):
     ts = port_state(cfg, params, state)
     w0 = ts.model.speller.out.weight.detach().clone()
     for i, batch in enumerate(batches):
-        jts, jm = jtrainer.train_step(jts, batch, cfg, dec_steps=7)
+        jts, jm = jtrainer.train_step(jts, batch, jax_cfg(cfg), dec_steps=7)
         m = ttrainer.train_step(ts, tuple(map(_t, batch)), cfg)
         np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]),
                                    rtol=1e-4)
@@ -390,7 +390,7 @@ def test_bias_hh_stays_zero_and_the_parameters_are_jax_s(rng):
     after training, and the trainable count is the JAX pytree's."""
     cfg = small_cfg(lr=1e-2)
     ts = ttrainer.create_train_state(cfg, CPU)
-    params, _ = jlas.las_init(jax.random.PRNGKey(0), cfg)
+    params, _ = jlas.las_init(jax.random.PRNGKey(0), jax_cfg(cfg))
     assert tlas.num_params(ts.model) == jlas.num_params(params)
     assert sum(p.numel() for p in ts.optimizer.params) == \
         jlas.num_params(params)
@@ -407,7 +407,7 @@ def test_bias_hh_stays_zero_and_the_parameters_are_jax_s(rng):
 def test_overfit_tiny_batch():
     """Fixed batch, repeated steps: loss must collapse (the JAX package's
     learnability gate, tests/test_train_eval.py)."""
-    from automatic_speech_recognition_tpu.config import Config
+    from automatic_speech_recognition_torch.config import Config
     from test_train_eval import TINY
     from test_train_eval import make_batch as tiny_batch
     cfg = Config(**TINY)

@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 
 from automatic_speech_recognition_tpu.data import shards
-from automatic_speech_recognition_tpu.utils.tokenizer import CharEncoder
 from automatic_speech_recognition_torch import train as train_cli
 from automatic_speech_recognition_torch.training.checkpoint import (
     CheckpointManager)
+from automatic_speech_recognition_torch.utils.tokenizer import CharEncoder
 
 SR = 16000
 
