@@ -72,6 +72,10 @@ constexpr int kTeamWarps = kTeamThreads / 32;
 constexpr int kMaxMT = 2;                   // 16-row MMA tiles per item
 constexpr int kThreads2 = 256;              // pass-2 block; feat_dim <= 256
 constexpr float kEpsZero = 2.220446049250313e-16f;  // float64 eps (speechpy)
+// a mel sum or frame energy below the smallest normal float counts as zero
+// (as on the TPU, which flushes subnormals): the plain version's per-bin
+// power underflows there where this kernel's Parseval energy does not
+constexpr float kFltMin = 1.17549435e-38f;
 constexpr float kEpsCmvn = 9.313225746154785e-10f;  // 2^-30
 
 struct Params {
@@ -393,8 +397,8 @@ features_kernel(const Params p) {
       }
     team_sync(team);
 
-    // mel (sparse, by filter); zero -> eps; log for mfcc; two frames a
-    // thread as above
+    // mel (sparse, by filter); zero or subnormal -> eps; log for mfcc; two
+    // frames a thread as above
     if (gf.row < gf.par)
       for (int t = gf.row; t < p.tt; t += 2 * gf.par) {
         const int u = t + gf.par < p.tt ? t + gf.par : t;
@@ -408,8 +412,8 @@ features_kernel(const Params p) {
             acc = fmaf(ps[k], w, acc);
             acc2 = fmaf(ps2[k], w, acc2);
           }
-          if (acc == 0.f) acc = kEpsZero;
-          if (acc2 == 0.f) acc2 = kEpsZero;
+          if (acc < kFltMin) acc = kEpsZero;
+          if (acc2 < kFltMin) acc2 = kEpsZero;
           float* o = p.mfcc ? lm : ft;  // fbank: F == D
           o[t * p.F + f] = p.mfcc ? logf(acc) : acc;
           if (u > t) o[u * p.F + f] = p.mfcc ? logf(acc2) : acc2;
@@ -422,7 +426,7 @@ features_kernel(const Params p) {
         for (int j = 0; j < p.J; ++j) e += q[t * p.step + j];
         const float* ps = psb + t * p.nb;
         e = 0.5f * e + 0.5f * (ps[p.ksup] + ps[p.ksup + 1]);
-        le[t] = logf(e == 0.f ? kEpsZero : e);
+        le[t] = logf(e < kFltMin ? kEpsZero : e);
       }
     team_sync(team);
 

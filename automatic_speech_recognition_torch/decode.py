@@ -17,8 +17,8 @@ frames, by decoding/beam.beam_search; rank 0 is the hypothesis.  Writes
 decode_pred.txt and decode_gt.txt to --log_dir and prints `WER: x.xxxx`
 (and `CER: x.xxxx` with --report_cer).  Refused: --num_partitions > 1
 (multi-GPU is ROADMAP item 8) and --quantize_decoder (item 6).
-`batch_iter` and `load_cat_feats` are those of decode.py and
-create_shards.py, written again because both modules import JAX.
+`batch_iter` is decode.py's, written again because that module imports
+JAX.
 
 Tiny CPU run:
   python -m automatic_speech_recognition_torch.decode --device cpu \\
@@ -46,6 +46,7 @@ from automatic_speech_recognition_torch.utils.text import (
 from automatic_speech_recognition_torch.utils.tokenizer import get_tokenizer
 from automatic_speech_recognition_torch.utils.watchdog import StallWatchdog
 
+from .create_shards import load_cat_feats
 from .decoding import beam as beam_lib
 from .models import char_rnn
 from .models.las import LAS
@@ -71,19 +72,6 @@ def batch_iter(feats: Sequence[np.ndarray], tokens: Sequence, batch: int,
         for r, g in enumerate(group):
             audio[r, :len(g)] = g
         yield audio, lens, [tokens[i] for i in idx]
-
-
-def load_cat_feats(feat_dir: str, cat: str) -> List[np.ndarray]:
-    """One split's feature dumps: a single file or numbered parts."""
-    single = os.path.join(feat_dir, f"{cat}-feats.npy")
-    if os.path.exists(single):
-        return list(np.load(single, allow_pickle=True))
-    parts = sorted(glob.glob(os.path.join(feat_dir, f"{cat}-feats-*.npy")),
-                   key=lambda p: int(p.rsplit("-", 1)[1].split(".")[0]))
-    feats: List[np.ndarray] = []
-    for p in parts:
-        feats.extend(np.load(p, allow_pickle=True))
-    return feats
 
 
 def load_split(cfg: Config) -> Tuple[List[np.ndarray], List[np.ndarray]]:

@@ -16,12 +16,20 @@ softmax head, with the reference's quirks kept:
   by an explicit is_training and drawn from an explicit torch.Generator,
   as in models/las.py.
 
+Training: `lm_train_step` is one optimization step over (B, T) ids with
+the recurrent state carried across steps as a value (detached between
+steps: truncated BPTT, as jax.value_and_grad gives), clip by global norm
+(dividing by the norm itself, as optax does) then Adam; dropout draws from
+the state's generator.  `BatchGenerator` (cursor batching, framework-free,
+copied as it is) feeds it; `sample_seq` samples greedily or by
+temperature from an explicit generator.
+
 An LM directory has the layout train_lm.py writes and sample_lm.load_lm
 reads: result.json ({"params": LMConfig fields, "best_model": epoch,
 ...}), vocab.json (char -> id) and lang/best_model/<epoch>.pt, the last in
-the port's checkpoint format (training/checkpoint.py).  Training
-(lm_train_step, BatchGenerator) and sampling (sample_seq) are not ported
-yet.
+the port's checkpoint format (training/checkpoint.py); the port's
+train_lm writes it with the full train state there and in
+lang/save_model/.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import dataclasses
 import json
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +48,7 @@ from automatic_speech_recognition_torch.utils.text import lm_vocab
 
 from ..ops import layers as L
 from ..training.checkpoint import CheckpointManager
+from ..training.trainer import clip_by_global_norm
 
 LSTMState = Tuple[torch.Tensor, torch.Tensor]
 LMState = Tuple[Union[torch.Tensor, LSTMState], ...]
@@ -193,6 +202,153 @@ def lm_loss(model: CharRNN, cfg: LMConfig, inputs: torch.Tensor,
     logp = torch.log_softmax(logits, -1)
     nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
     return nll.mean(), state
+
+
+class LMOptimizer:
+    """clip_by_global_norm(max_grad_norm) -> adam(learning_rate): the optax
+    chain of make_lm_optimizer.  Adam's bias correction is float64 here,
+    float32 in optax (about 3e-5 relative at t = 1)."""
+
+    def __init__(self, params: Sequence[torch.nn.Parameter], cfg: LMConfig):
+        self.params: List[torch.nn.Parameter] = list(params)
+        self.max_grad_norm = cfg.max_grad_norm
+        self.adam = torch.optim.Adam(self.params, lr=cfg.learning_rate,
+                                     betas=(0.9, 0.999), eps=1e-8)
+
+    def update(self, grads: Sequence[torch.Tensor]) -> None:
+        """Apply one step's gradients (aligned with params)."""
+        for p, g in zip(self.params,
+                        clip_by_global_norm(grads, self.max_grad_norm)):
+            p.grad = g
+        self.adam.step()
+        for p in self.params:
+            p.grad = None
+
+    def state_dict(self) -> Dict:
+        return self.adam.state_dict()
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.adam.load_state_dict(state)
+
+
+def make_lm_optimizer(model: CharRNN, cfg: LMConfig) -> LMOptimizer:
+    return LMOptimizer(model.parameters(), cfg)
+
+
+@dataclass
+class LMTrainState:
+    """Model, optimizer, step count and the generator dropout draws from
+    (on the model's device); training/checkpoint.py saves and restores
+    it."""
+    model: CharRNN
+    optimizer: LMOptimizer
+    step: int
+    generator: torch.Generator
+
+
+def create_lm_train_state(cfg: LMConfig, seed: int,
+                          device: torch.device) -> LMTrainState:
+    """Weights from `seed` (lm_init's distributions) and a generator on
+    the device seeded with it."""
+    model = init(cfg, torch.Generator().manual_seed(seed), device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    return LMTrainState(model, make_lm_optimizer(model, cfg), 0, generator)
+
+
+def _detach(state: LMState) -> LMState:
+    return tuple(tuple(x.detach() for x in s) if isinstance(s, tuple)
+                 else s.detach() for s in state)
+
+
+def lm_train_step(ts: LMTrainState, inputs: torch.Tensor,
+                  targets: torch.Tensor, state: LMState, cfg: LMConfig
+                  ) -> Tuple[torch.Tensor, LMState]:
+    """One optimization step on (B, T) ids, in place on ts, carrying the
+    recurrent state across steps like the reference's stateful epoch loop
+    (lang/char_rnn_model.py:216-232).  Returns (loss, final state), both
+    detached: the next step's backward stops at its own first input."""
+    loss, final_state = lm_loss(ts.model, cfg, inputs, targets,
+                                _detach(state), True, ts.generator)
+    grads = torch.autograd.grad(loss, ts.optimizer.params,
+                                materialize_grads=True)
+    ts.optimizer.update(grads)
+    ts.step += 1
+    return loss.detach(), _detach(final_state)
+
+
+@torch.no_grad()
+def lm_eval_loss(model: CharRNN, inputs: torch.Tensor, targets: torch.Tensor,
+                 state: LMState, cfg: LMConfig
+                 ) -> Tuple[torch.Tensor, LMState]:
+    """(mean CE, final state) without dropout."""
+    return lm_loss(model, cfg, inputs, targets, state)
+
+
+@torch.no_grad()
+def sample_seq(model: CharRNN, cfg: LMConfig, length: int,
+               start_ids: Sequence[int],
+               generator: Optional[torch.Generator] = None,
+               temperature: float = 1.0, max_prob: bool = True) -> List[int]:
+    """Greedy / temperature sampling (lang/char_rnn_model.py:246-282): warm
+    up on start_ids, then emit `length` ids.  `generator` (on the model's
+    device; default seed 0) draws the first id without start_ids and every
+    id when not max_prob."""
+    dev = model.softmax.weight.device
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    state = zero_state(cfg, 1, dev)
+    ids = lambda i: torch.tensor([i], dtype=torch.long, device=dev)
+    if start_ids:
+        for sid in start_ids[:-1]:
+            _, state = lm_step(model, cfg, ids(sid), state)
+        x = ids(start_ids[-1])
+    else:
+        x = torch.randint(cfg.vocab_size, (1,), generator=generator,
+                          device=dev)
+    out = []
+    for _ in range(length):
+        logits, state = lm_step(model, cfg, x, state)
+        if max_prob:
+            nxt = int(logits[0].argmax())
+        else:
+            nxt = int(torch.multinomial(
+                torch.softmax(logits[0] / temperature, -1), 1,
+                generator=generator))
+        out.append(nxt)
+        x = ids(nxt)
+    return out
+
+
+class BatchGenerator:
+    """Cursor-based contiguous text batcher (lang/char_rnn_model.py:285-324):
+    batch_size cursors spaced text_size//batch_size apart; next() returns
+    (num_unrollings+1, batch_size) ids where row 0 repeats the previous
+    call's last row."""
+
+    def __init__(self, ids, batch_size: int, n_unrollings: int):
+        import numpy as np
+        self._ids = np.asarray(ids, np.int32)
+        self._batch_size = batch_size
+        self._n = n_unrollings
+        segment = len(self._ids) // batch_size
+        self._cursor = [offset * segment for offset in range(batch_size)]
+        self._last = self._next_row()
+
+    def _next_row(self):
+        import numpy as np
+        row = np.empty((self._batch_size,), np.int32)
+        for b in range(self._batch_size):
+            row[b] = self._ids[self._cursor[b]]
+            self._cursor[b] = (self._cursor[b] + 1) % len(self._ids)
+        return row
+
+    def next(self):
+        import numpy as np
+        rows = [self._last]
+        for _ in range(self._n):
+            rows.append(self._next_row())
+        self._last = rows[-1]
+        return np.stack(rows)  # (n_unrollings+1, batch_size)
 
 
 def _best_model_dir(directory: str) -> str:

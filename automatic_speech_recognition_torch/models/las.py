@@ -14,7 +14,9 @@ automatic_speech_recognition_tpu/models/las.py).
   a sample of the step's own distribution.  The fed embedding takes
   dropout and, with cfg.add_vn, variational noise per lookup.
 - Losses: masked label-smoothed CE (eps 0.01) and the optional CTC (blank
-  = vocab_size), with the JAX package's LR and tf-rate schedules.
+  = vocab_size), with the JAX package's LR and tf-rate schedules;
+  cfg.spec_augment masks the training features first
+  (ops/augmentation.spec_augment).
 
 Training branches are chosen by an explicit is_training, never by
 nn.Module.training (cuDNN's RNN backward needs train mode); randomness
@@ -36,6 +38,7 @@ from automatic_speech_recognition_torch.config import Config
 from automatic_speech_recognition_torch.utils.tokenizer import PAD_ID, SOS_ID
 
 from ..ops import attention as att
+from ..ops import augmentation
 from ..ops import layers as L
 
 # new BN moving statistics by module name under the model ("listener....")
@@ -350,8 +353,9 @@ def total_loss(model: LAS, batch, cfg: Config, dec_steps: int,
     """Training loss.  Returns (loss, (logits, alphas, new BN state))."""
     audio, audiolen, y, _ = batch
     if cfg.spec_augment:
-        raise NotImplementedError(
-            "spec_augment is not ported yet (ROADMAP item 5)")
+        # the masks draw from the step's generator, as JAX splits the
+        # step key for them; evaluation never masks
+        audio = augmentation.spec_augment(generator, audio, audiolen, cfg)
     tf_rate = (scheduled_sampling_rate(cfg, step)
                if cfg.scheduled_sampling else 1.0)
     logits, ctc_logits, alphas, enc_len, state = las_forward(

@@ -24,6 +24,11 @@ from automatic_speech_recognition_torch.ops import frontend_host as host
 
 EPS_CMVN = 2.0 ** -30
 EPS_ZERO = float(np.finfo(np.float64).eps)
+# powers below the smallest normal float32 count as zero, in this version
+# and in the kernel alike (the TPU flushes subnormals): a frame of
+# resampler ringing (samples ~1e-22) has a subnormal energy, which one
+# float32 summation order keeps and another underflows
+FLT_MIN = float(np.finfo(np.float32).tiny)
 
 
 @functools.lru_cache(maxsize=16)
@@ -69,7 +74,8 @@ def power_spectrum(frames: torch.Tensor, fft_length: int) -> torch.Tensor:
 
 
 def _zero_handling(x: torch.Tensor) -> torch.Tensor:
-    return x.masked_fill(x == 0, EPS_ZERO)
+    """Zero (or subnormal) power -> speechpy's eps; x is non-negative."""
+    return x.masked_fill(x < FLT_MIN, EPS_ZERO)
 
 
 def masked_cmvn(feat: torch.Tensor, featlen: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,12 @@ automatic_speech_recognition_tpu/training/checkpoint.py, same interface).
 One file per epoch, `<dir>/<epoch>.pt`, written by torch.save: the model's
 state dict (weights, BN moving statistics), the optimizer's state (Adam
 moments, update count, MultiSteps accumulator), the micro-step count and
-the generator's state; `save_weights` writes the state dict alone, which
+the generators' states (the LAS state's augmentation generator beside the
+main one); `save` and `restore` take the LAS TrainState and the language
+model's LMTrainState (models/char_rnn.py) alike.  A LAS checkpoint written
+before the augmentation generator existed restores with that generator
+as the state was created (seeded from cfg.seed).  `save_weights` writes
+the state dict alone, which
 `load_weights` reads (as every evaluation restore does).  A save writes
 `<epoch>.pt.tmp` and renames it over the target with os.replace, so a
 crash mid-save leaves the previous copy of that epoch whole; restore
@@ -17,13 +22,17 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..models.las import LAS
 from .trainer import TrainState
+
+if TYPE_CHECKING:
+    from ..models.char_rnn import LMTrainState
+    AnyTrainState = Union[TrainState, LMTrainState]
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 _TMP_SUFFIX = ".tmp"
@@ -41,17 +50,21 @@ class CheckpointManager:
     def _path(self, epoch: int) -> str:
         return os.path.join(self._dir, f"{epoch}.pt")
 
-    def save(self, epoch: int, state: TrainState, block: bool = True) -> None:
+    def save(self, epoch: int, state: "AnyTrainState",
+             block: bool = True) -> None:
         """Save, overwriting an existing checkpoint of the same epoch.
         Always synchronous (`block` is kept for the interface): the state
         is copied to the host inside torch.save."""
         del block
-        self._write(epoch, {
+        payload = {
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "step": state.step,
             "generator": state.generator.get_state(),
-        })
+        }
+        if isinstance(state, TrainState):
+            payload["aug_generator"] = state.aug_generator.get_state()
+        self._write(epoch, payload)
 
     def save_weights(self, epoch: int, model: nn.Module) -> None:
         """Save a model's weights alone, for evaluation (`load_weights`);
@@ -87,8 +100,8 @@ class CheckpointManager:
         return torch.load(self._path(step), map_location="cpu",
                           weights_only=True)
 
-    def restore(self, state_like: TrainState, epoch: int = -1
-                ) -> Optional[TrainState]:
+    def restore(self, state_like: "AnyTrainState", epoch: int = -1
+                ) -> Optional["AnyTrainState"]:
         """Load the checkpoint into `state_like` (in place) and return it;
         epoch -1 = latest.  None if there is nothing to restore."""
         payload = self._load(epoch)
@@ -98,6 +111,8 @@ class CheckpointManager:
         state_like.optimizer.load_state_dict(payload["optimizer"])
         state_like.step = int(payload["step"])
         state_like.generator.set_state(payload["generator"])
+        if "aug_generator" in payload:
+            state_like.aug_generator.set_state(payload["aug_generator"])
         return state_like
 
     def load_weights(self, model_like: nn.Module, epoch: int = -1

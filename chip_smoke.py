@@ -9,8 +9,8 @@
    fbank, CMVN on and off, rtol 1e-4 / atol 2e-4): B = 8 at 1 to 32 s
    with ragged and sub-frame rows; B = 1 at 5 s and at 60 s; frame counts
    on and between the kernel's tile edges; a batch whose rows are all
-   shorter than one tile; an odd subsegment (15 kHz) and whole frames
-   (11025 Hz).  Then to the NumPy speechpy golden on synthesized speech
+   shorter than one tile; frames of subnormal energy; an odd subsegment
+   (15 kHz) and whole frames (11025 Hz).  Then to the NumPy speechpy golden on synthesized speech
    (5e-3).  Counts the HMMA (tensor-core) instructions of the built
    library (cuobjdump -sass).  Times the kernel, the previous kernel
    (built from a scratch copy of its source at BASELINE_SOURCE, when one
@@ -58,9 +58,32 @@
    relative).  The device idle share comes from one torch.profiler trace
    of the 8 s joint-CTC batch.
 
+6. Runs run.sh's stages through the port's entry points at the same
+   width on a synthesized LibriSpeech-layout corpus (64 train utterances
+   of 1.2-14 s, 12 dev of 1.5-15.5 s, 16-bit WAVs): train_subword
+   (--size 5000: the vocabulary the corpus allows); preprocess with
+   --augmentation True (features held to the plain frontend on the card,
+   rtol 1e-4 / atol 2e-4; utt/s) and with --audio_shards True;
+   create_shards on both; train.main over the raw-audio shards with
+   --ctc True, the three online waveform perturbations and --spec_augment
+   (3 steps); per bucket, the resampler on the card against the CPU at
+   each rate (atol 1e-5) and its time, the noise SNR over valid samples
+   against the drawn one, zero padding, the perturbed batch's features
+   kernel vs plain, and the augmented step's time against the
+   unaugmented one on the same batch, in turns; one augmented step with
+   the kernel against one with
+   the plain frontend from identical state and generators; test with
+   --eval_decoder attention and ctc_greedy (every dev utterance decoded,
+   none skipped; ms per batch); train_lm at its defaults for 2 epochs on
+   corpus_all.txt (validation perplexity falls; steps/s) and one
+   lm_train_step on the card against the CPU; sample_lm greedy on the
+   card = on the CPU; decode --apply_lm True over that LM directory; and
+   serve.main on a local port: 8 concurrent WAV requests, /healthz,
+   /stats, each text = Recognizer.transcribe_signals greedy.
+
 Every phase raises on failure.  The last line is the result JSON; the
 line before it lists the kernels, with the launches of the serving,
-training and beam runs.  Without CUDA it exits non-zero.
+training, beam and recipe runs.  Without CUDA it exits non-zero.
 """
 
 from __future__ import annotations
@@ -73,14 +96,16 @@ import os
 import subprocess
 import sys
 import tempfile
+import queue
 import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from automatic_speech_recognition_torch.config import Config
+from automatic_speech_recognition_torch.config import Config, parse_args
 from automatic_speech_recognition_torch.data import shards
 from automatic_speech_recognition_torch.data.pipeline import BucketedLoader
 from automatic_speech_recognition_torch.ops import frontend_host as host
@@ -88,12 +113,24 @@ from automatic_speech_recognition_torch.utils.formant_synth import (
     PHONES, synth_phones)
 from automatic_speech_recognition_torch.utils.tokenizer import (CharEncoder,
                                                                EOS_ID)
+from automatic_speech_recognition_torch import create_shards as \
+    create_shards_cli
+from automatic_speech_recognition_torch import decode as decode_cli
+from automatic_speech_recognition_torch import preprocess as preprocess_cli
+from automatic_speech_recognition_torch import sample_lm as sample_lm_cli
+from automatic_speech_recognition_torch import serve as serve_cli
+from automatic_speech_recognition_torch import test as test_cli
 from automatic_speech_recognition_torch import train as train_cli
+from automatic_speech_recognition_torch import train_lm as train_lm_cli
+from automatic_speech_recognition_torch import train_subword as \
+    train_subword_cli
 from automatic_speech_recognition_torch.api import Recognizer
+from automatic_speech_recognition_torch.data.audio_io import (read_audio,
+                                                              write_wav)
 from automatic_speech_recognition_torch.decoding import beam as beam_lib
 from automatic_speech_recognition_torch.models import char_rnn, las
-from automatic_speech_recognition_torch.ops import _kernels, cuda_frontend
-from automatic_speech_recognition_torch.ops import frontend
+from automatic_speech_recognition_torch.ops import _kernels, augmentation
+from automatic_speech_recognition_torch.ops import cuda_frontend, frontend
 from automatic_speech_recognition_torch.serving import BatchingRecognizer
 from automatic_speech_recognition_torch.training import trainer
 from automatic_speech_recognition_torch.training.checkpoint import (
@@ -280,6 +317,14 @@ def kernel_cases(dev, rng) -> float:
     worst = max(worst, kernel_vs_plain(
         dev, noise(rng, 8, S, dev), torch.tensor(lens, device=dev),
         f"rows under one tile ({tt})"))
+    # frames holding only a few samples of ~1e-22 (a resampler's ringing
+    # over digital silence): subnormal power and energy count as zero
+    audio = noise(rng, 8, 2 * SR, dev)
+    audio[::2, 1600:6400] = 0.0
+    audio[::2, 1600:6400:700] = 4.4e-22
+    worst = max(worst, kernel_vs_plain(
+        dev, audio, torch.tensor([2 * SR] * 8, device=dev),
+        "subnormal frame energy"))
     worst = max(worst, kernel_vs_plain(
         dev, noise(rng, 8, 4 * 15000, dev),
         torch.tensor([4 * 15000] * 7 + [20000], device=dev),
@@ -1015,6 +1060,415 @@ def phase_beam(dev, card: str) -> int:
     return launches
 
 
+RECIPE_TRAIN = ((16, 1.2, 1.8), (24, 2.5, 7.0), (24, 8.0, 14.0))
+RECIPE_DEV = ((4, 1.5, 1.8), (4, 3.0, 7.5), (4, 9.0, 15.5))
+RECIPE_AUG = ["--ctc", "True", "--ctc_weight", "0.2",
+              "--online_speed_perturb", "True",
+              "--online_volume_perturb", "True",
+              "--online_noise_perturb", "True", "--online_noise_p", "0.7",
+              "--spec_augment", "True"]
+SERVE_DURATIONS = (1.0, 1.7, 2.5, 3.6, 5.0, 7.4, 11.0, 15.0)
+
+
+def synth_corpus(root: str, rng: np.random.Generator) -> dict:
+    """A LibriSpeech-layout corpus of 16-bit WAVs: train and dev splits of
+    the durations in RECIPE_TRAIN / RECIPE_DEV, each a slice of one of 8
+    synthesized 16 s phone sequences, its transcript the phone names at
+    CHARS_PER_SECOND characters a second.  Returns the durations."""
+    names = [p for p in PHONES if p not in ("SIL", "SP")]
+    pool = []
+    for _ in range(8):
+        phones = list(rng.choice(names, 160))
+        pool.append((synth_phones(phones, rng=rng), " ".join(phones)))
+    out = {}
+    for split, spec, spk in (("train", RECIPE_TRAIN, 1),
+                             ("dev", RECIPE_DEV, 2)):
+        d = os.path.join(root, split, str(spk), "10")
+        os.makedirs(d)
+        lines, secs = [], []
+        for n, lo, hi in spec:
+            for _ in range(n):
+                sec = float(rng.uniform(lo, hi))
+                sig, text = pool[int(rng.integers(len(pool)))]
+                start = int(rng.integers(0, len(sig) - int(sec * SR)))
+                uid = f"{spk}-10-{len(lines):04d}"
+                write_wav(os.path.join(d, f"{uid}.wav"),
+                          sig[start:start + int(sec * SR)], SR)
+                lines.append(f"{uid} "
+                             + text[:int(sec * CHARS_PER_SECOND)].strip())
+                secs.append(sec)
+        with open(os.path.join(d, f"{spk}-10.trans.txt"), "w") as f:
+            f.write("\n".join(lines))
+        out[split] = secs
+    return out
+
+
+def recipe_flags(root: str) -> list:
+    """The published flags with the corpus, feature and shard paths."""
+    return PUBLISHED_FLAGS + [
+        "--convert_rate", "0.12",
+        "--bucket_boundaries_eval", ",".join(map(str, TRAIN_BUCKETS)),
+        "--train_100hr_corpus_dir", f"{root}/train",
+        "--train_360hr_corpus_dir", f"{root}/none",
+        "--train_500hr_corpus_dir", f"{root}/none",
+        "--dev_data_dir", f"{root}/dev", "--test_data_dir", f"{root}/none",
+        "--subword_dir", f"{root}/subword", "--save_dir", f"{root}/model",
+        "--summary_dir", f"{root}/summary", "--feat_dir", f"{root}/none"]
+
+
+def launched(fn):
+    """(fn's result, fused_frontend launches while it ran)."""
+    cuda_frontend.fused_frontend.launches = 0
+    res = fn()
+    torch.cuda.synchronize()
+    return res, cuda_frontend.fused_frontend.launches
+
+
+def recipe_preprocess(dev, root: str, flags: list, card: str) -> int:
+    """preprocess into feats/ (with speed augmentation) and raw/, the
+    features held to the plain frontend; returns the kernel launches."""
+    t0 = time.perf_counter()
+    _, n_feat = launched(lambda: preprocess_cli.main(
+        ["--device", dev.type] + flags
+        + ["--feat_dir", f"{root}/feats", "--audio_shards", "False",
+           "--augmentation", "True"]))
+    wall = time.perf_counter() - t0
+    preprocess_cli.main(["--device", dev.type] + flags
+                        + ["--feat_dir", f"{root}/raw"])
+    cfg = published_cfg()
+    worst, n_utt, audio_s = 0.0, 0, 0.0
+    for cat, split in (("train-100", "train"), ("dev", "dev")):
+        _, paths = preprocess_cli.data_preparation(f"{root}/{split}")
+        sigs = [read_audio(p)[0].astype(np.float32) for p in paths]
+        saved = create_shards_cli.load_cat_feats(f"{root}/feats", cat)
+        plain = frontend.extract_features_list(
+            sigs, cfg.replace(use_pallas=False), dev)
+        for i, (got, want) in enumerate(zip(saved, plain)):
+            worst = max(worst, check_close(
+                f"preprocess {cat} utterance {i}", torch.from_numpy(got),
+                torch.from_numpy(want), RTOL, ATOL))
+        run = lambda: frontend.extract_features_list(sigs, cfg, dev)
+        run()
+        t0 = time.perf_counter()
+        run()
+        dt = time.perf_counter() - t0
+        n_utt += len(sigs)
+        audio_s += sum(map(len, sigs)) / SR
+        print(f"featurize {cat}: {len(sigs)} utterances, "
+              f"{sum(map(len, sigs)) / SR:.1f} s of audio [{card}]: "
+              f"{dt * 1e3:.2f} ms, {len(sigs) / dt:.1f} utt/s "
+              f"(extract_features_list, host padding and copies included)")
+    print(f"preprocess (features + speed 0.9 / 1.1 dumps of train) of "
+          f"{n_utt} utterances, {audio_s:.1f} s of audio [{card}]: "
+          f"{wall:.2f} s wall, fused_frontend launches {n_feat}; saved "
+          f"features vs the plain "
+          f"frontend: max abs err {worst:.3e} over {n_utt} utterances")
+    if n_feat == 0:
+        raise AssertionError("preprocess did not launch the kernel")
+    return n_feat
+
+
+def first_batch_per_bucket(files, cfg: Config, dev) -> list:
+    """One training batch of each bucket, on the device, shortest first."""
+    loader = BucketedLoader(files, cfg, seed=0)
+    found = {}
+    for _, b in zip(range(100), loader):
+        found.setdefault(b[0].shape[1], b)
+        if len(found) == len(TRAIN_BUCKETS):
+            break
+    else:
+        raise AssertionError(f"batches of {len(found)} buckets in 100")
+    return [tuple(torch.from_numpy(x).to(dev) for x in found[k])
+            for k in sorted(found)]
+
+
+def recipe_augmentation_checks(batches, cfg: Config, card: str) -> None:
+    """The resampler on the card against the CPU at each rate, its time
+    beside the step's, the noise SNR over valid samples, zero padding, and
+    one augmented step with the kernel against one with the plain
+    frontend from identical state and generators."""
+    for batch in batches:
+        sig, lens = batch[0][:, :, 0, 0], batch[1]
+        B, S = sig.shape
+        for up, down in augmentation._rate_fractions(cfg.online_speed_rates):
+            if up == down:
+                continue
+            run = lambda: augmentation.resample_rational_device(sig, lens,
+                                                                up, down)
+            got, got_len = run()
+            want, want_len = augmentation.resample_rational_device(
+                sig[:2].cpu(), lens[:2].cpu(), up, down)
+            if not torch.equal(got_len[:2].cpu(), want_len):
+                raise AssertionError("resample lengths differ from the CPU")
+            err = check_close(f"resample {up}/{down} {B} x {S / SR:.2f} s",
+                              got[:2].cpu(), want, 0.0, 1e-5)
+            ms = float(np.median([cuda_ms(run, 3) for _ in range(3)]))
+            print(f"resample_rational_device up {up} down {down}, {B} x "
+                  f"{S / SR:.3f} s [{card}]: {ms:.3f} ms, CUDA vs CPU max "
+                  f"abs err {err:.3e}")
+        ts = trainer.create_train_state(cfg, sig.device)
+        aug_ms = float(np.median([cuda_ms(lambda: trainer.augment_waveforms(
+            ts, sig, lens, cfg), 1) for _ in range(5)]))
+        out, new_len = trainer.augment_waveforms(ts, sig, lens, cfg)
+        pad = torch.arange(S, device=sig.device)[None, :] >= new_len[:, None]
+        if out[pad].any():
+            raise AssertionError("augmentation left non-zero padding")
+        fk, lk = frontend.featurize_batch(out, new_len, cfg)
+        fp, lp = frontend.featurize_batch(out, new_len,
+                                          cfg.replace(use_pallas=False))
+        if not torch.equal(lk, lp):
+            raise AssertionError("featlen differs on augmented waveforms")
+        feat_err = check_close(f"features of the augmented {S / SR:.2f} s "
+                               "batch", fk, fp, RTOL, ATOL)
+        snr_cfg = cfg.replace(online_noise_snr_low=10.0,
+                              online_noise_snr_high=10.0, online_noise_p=1.0)
+        noisy = augmentation.online_noise_perturb(
+            ts.aug_generator, sig, lens, snr_cfg).double()
+        valid = ~(torch.arange(S, device=sig.device)[None, :]
+                  >= lens[:, None])
+        x = sig.double()
+        p_sig = (x * x * valid).sum(1)
+        p_add = ((noisy - x) ** 2 * valid).sum(1)
+        live = p_sig > 0
+        snr = 10 * torch.log10(p_sig[live] / p_add[live])
+        if not (snr - 10.0).abs().max() < 1e-3:
+            raise AssertionError(f"noise SNR {snr.tolist()} != 10 dB")
+        print(f"augmentation of the {S / SR:.3f} s bucket batch [{card}]: "
+              f"speed + volume + noise {aug_ms:.3f} ms; padding zero; kernel "
+              f"vs plain features of the perturbed batch max abs err "
+              f"{feat_err:.3e}; noise "
+              f"SNR over valid samples within "
+              f"{float((snr - 10.0).abs().max()):.2e} dB of the drawn 10 dB")
+        step_timings(ts, batch, cfg, card)
+        off_cfg = cfg.replace(online_speed_perturb=False,
+                              online_volume_perturb=False,
+                              online_noise_perturb=False, spec_augment=False)
+        steps = {"off": (trainer.create_train_state(off_cfg, sig.device),
+                         off_cfg), "on": (ts, cfg)}
+        times = {"off": [], "on": []}
+        for k in ("off", "on", "on", "off") * 2:
+            times[k].append(cuda_ms(lambda: trainer.train_step(
+                steps[k][0], batch, steps[k][1]), 1))
+        on, off = (float(np.median(times[k])) for k in ("on", "off"))
+        print(f"train step on the same {S / SR:.3f} s batch, augmented vs "
+              f"not, in turns [{card}]: {on:.2f} vs {off:.2f} ms "
+              f"({100 * (on / off - 1):+.1f} %; runs on "
+              f"{[round(x, 2) for x in times['on']]}, off "
+              f"{[round(x, 2) for x in times['off']]})")
+    got = {}
+    for use_kernel in (True, False):
+        c = cfg.replace(use_pallas=use_kernel)
+        m = trainer.train_step(trainer.create_train_state(c, batches[1][0]
+                                                          .device),
+                               batches[1], c)
+        got[use_kernel] = (m["loss"].item(), m["grad_norm"].item())
+    (lk, gk), (lp, gp) = got[True], got[False]
+    if abs(lk - lp) > 1e-4 * abs(lp) or abs(gk - gp) > 1e-3 * abs(gp):
+        raise AssertionError(f"augmented step, kernel vs plain frontend: "
+                             f"loss {lk} vs {lp}, grad norm {gk} vs {gp}")
+    print(f"one augmented step on the 8 s batch, kernel vs plain frontend "
+          f"[{card}]: loss {lk:.6f} vs {lp:.6f} (rel "
+          f"{abs(lk - lp) / lp:.2e}), grad norm {gk:.6f} vs {gp:.6f} (rel "
+          f"{abs(gk - gp) / gp:.2e})")
+
+
+def recipe_lm(dev, root: str, card: str) -> str:
+    """train_lm at its defaults for 2 epochs on corpus_all.txt, one LM
+    step on the card against the CPU, and sample_lm's greedy text on both;
+    returns the LM directory."""
+    lm_dir = f"{root}/lm"
+    res = train_lm_cli.main(["--device", dev.type, "--data_file",
+                             f"{root}/subword/corpus_all.txt",
+                             "--output_dir", lm_dir, "--num_epochs", "2"])
+    hist = res["history"]
+    if not hist["valid_ppl"][-1] < hist["valid_ppl"][0]:
+        raise AssertionError(f"LM validation perplexity did not fall: "
+                             f"{hist['valid_ppl']}")
+    print(f"train_lm (lstm 2 x 128, batch 20 x 10, 2 epochs) [{card}]: "
+          f"train ppl {[round(x, 4) for x in hist['train_ppl']]}, valid ppl "
+          f"{[round(x, 4) for x in hist['valid_ppl']]}, test ppl "
+          f"{res.get('test_ppl', float('nan')):.4f}, steps/s "
+          f"{[round(x, 1) for x in hist['train_steps_per_s']]}")
+    lm, cfg, v2i, _ = char_rnn.load_lm_dir(lm_dir)
+    ids = np.asarray([v2i[c] for c in open(f"{root}/subword/corpus_all.txt")
+                      .read().upper() if c in v2i], np.int32)
+    rows = torch.from_numpy(char_rnn.BatchGenerator(
+        ids, cfg.batch_size, cfg.num_unrollings).next())
+    res = []
+    for d in (dev, torch.device("cpu")):
+        m = copy.deepcopy(lm).to(d)
+        ts = char_rnn.LMTrainState(m, char_rnn.make_lm_optimizer(m, cfg), 0,
+                                   torch.Generator(device=d).manual_seed(0))
+        x = rows.to(d)
+        loss, _ = char_rnn.lm_train_step(
+            ts, x[:-1].T, x[1:].T, char_rnn.zero_state(cfg, cfg.batch_size,
+                                                       d), cfg)
+        res.append((loss.item(), torch.cat(
+            [p.detach().cpu().reshape(-1) for p in m.parameters()])))
+    (card_loss, card_w), (cpu_loss, cpu_w) = res
+    err = check_close("lm_train_step weights card vs CPU", card_w, cpu_w,
+                      1e-4, 1e-6)
+    if abs(card_loss - cpu_loss) > 1e-4 * cpu_loss:
+        raise AssertionError(f"LM loss {card_loss} vs {cpu_loss}")
+    print(f"one lm_train_step card vs CPU: loss {card_loss:.6f} vs "
+          f"{cpu_loss:.6f}, weights max abs err {err:.3e}")
+    texts = [sample_lm_cli.main(["--device", d, "--init_dir", lm_dir,
+                                 "--length", "60"])
+             for d in (dev.type, "cpu")]
+    if texts[0] != texts[1]:
+        raise AssertionError(f"greedy samples differ: {texts}")
+    print(f"sample_lm greedy, card = CPU: {texts[0]!r}")
+    return lm_dir
+
+
+def recipe_serve(dev, root: str, flags: list, card: str) -> int:
+    """serve.main on a local port: 8 concurrent WAV requests, /healthz,
+    /stats; each text equals Recognizer.transcribe_signals greedy on a
+    batch of the server's shape.  Returns the kernel launches."""
+    rng = np.random.default_rng(5)
+    sigs = [speech(rng, s) for s in SERVE_DURATIONS]
+    bodies = []
+    for i, s in enumerate(sigs):
+        write_wav(f"{root}/req{i}.wav", s, SR)
+        bodies.append(open(f"{root}/req{i}.wav", "rb").read())
+        sigs[i] = read_audio(f"{root}/req{i}.wav")[0].astype(np.float32)
+    started = queue.Queue()
+    cuda_frontend.fused_frontend.launches = 0
+    t = threading.Thread(target=serve_cli.main, args=(
+        ["--device", dev.type] + flags + ["--port", "0", "--beam_size", "1",
+                                        "--max_batch", "8"],
+        started.put))
+    t.start()
+    httpd = started.get(timeout=600)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    texts = [None] * len(sigs)
+
+    def client(i):
+        req = urllib.request.Request(url + "/transcribe", data=bodies[i],
+                                     headers={"Content-Type": "audio/wav"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            texts[i] = json.loads(r.read())["text"]
+
+    try:
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(sigs))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            snap = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    launches = cuda_frontend.fused_frontend.launches
+    if t.is_alive():
+        raise AssertionError("the server did not stop")
+    if snap["requests"] != len(sigs) or snap["errors"] or None in texts:
+        raise AssertionError(f"HTTP serving: {snap}, texts {texts}")
+    rec = Recognizer.from_checkpoint(f"{root}/model",
+                                     serve_cli.parse(flags)[0], device=dev)
+    ladder = BatchingRecognizer(rec, max_batch=8).bucket_seconds
+    for s, text in zip(sigs, texts):
+        bucket = next(b for b in ladder if len(s) / SR <= b)
+        want = rec.transcribe_signals([s] * 8, pad_seconds=bucket)[0]
+        if text != want:
+            raise AssertionError(f"HTTP text {text!r} != Recognizer's "
+                                 f"{want!r} ({len(s) / SR:.2f} s)")
+    print(f"serve.main over HTTP, {len(sigs)} concurrent WAV requests of "
+          f"{min(SERVE_DURATIONS)}-{max(SERVE_DURATIONS)} s [{card}]: "
+          f"{wall:.3f} s wall, texts = Recognizer.transcribe_signals "
+          f"greedy; /healthz {json.dumps(health)}; /stats "
+          f"{json.dumps(snap)}; fused_frontend launches {launches} (warmup "
+          f"included)")
+    return launches
+
+
+def phase_recipe(dev, card: str) -> int:
+    """run.sh's stages through the port's entry points at published width
+    on a synthesized corpus; returns the kernel launches of the
+    preprocess, train, test, decode and serve runs."""
+    rng = np.random.default_rng(4)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        secs = synth_corpus(root, rng)
+        print(f"recipe corpus: {len(secs['train'])} train and "
+              f"{len(secs['dev'])} dev utterances, {sum(secs['train']):.1f} "
+              f"+ {sum(secs['dev']):.1f} s, synthesized in "
+              f"{time.perf_counter() - t0:.1f} s")
+        flags = recipe_flags(root)
+        bpe = train_subword_cli.main(flags + ["--size", "5000"])
+        print(f"train_subword --size 5000: vocabulary of "
+              f"{bpe.get_vocab_size()} tokens (what the corpus allows)")
+        launches = recipe_preprocess(dev, root, flags, card)
+        for kind in ("feats", "raw"):
+            extra = ["--audio_shards", "False"] if kind == "feats" else []
+            n = create_shards_cli.main(flags + [
+                "--feat_dir", f"{root}/{kind}",
+                "--shard_dir", f"{root}/shards_{kind}"] + extra)
+            print(f"create_shards {kind}: {n} train records, shards "
+                  f"{sorted(os.listdir(f'{root}/shards_{kind}'))}")
+        shard_flags = flags + ["--shard_dir", f"{root}/shards_raw"]
+
+        (ts, hist), n = launched(lambda: train_cli.main(
+            ["--device", dev.type] + shard_flags + RECIPE_AUG
+            + ["--epoch", "1", "--steps_per_epoch", "3"]))
+        launches += n
+        if ts.step != 3 or not np.all(np.isfinite(hist["loss"])) or n < 3:
+            raise AssertionError(f"augmented train.main: step {ts.step}, "
+                                 f"{hist}, kernel launches {n}")
+        print(f"train.main with online speed / volume / noise perturbation "
+              f"and SpecAugment, 3 steps [{card}]: losses "
+              f"{[round(x, 4) for x in hist['loss']]}, grad norms "
+              f"{[round(x, 4) for x in hist['grad_norm']]}, fused_frontend "
+              f"launches {n}")
+        aug_cfg = parse_args(shard_flags + RECIPE_AUG).replace(
+            vocab_size=published_cfg().vocab_size)
+        batches = first_batch_per_bucket(
+            sorted(glob.glob(f"{root}/shards_raw/train-*.arsh")), aug_cfg,
+            dev)
+        recipe_augmentation_checks(batches, aug_cfg, card)
+        del batches
+
+        for decoder in ("attention", "ctc_greedy"):
+            res, n = launched(lambda: test_cli.main(
+                ["--device", dev.type] + shard_flags
+                + ["--ctc", "True", "--split", "dev", "--eval_decoder",
+                   decoder, "--log_dir", f"{root}/log_{decoder}"]))
+            launches += n
+            if res.utterances != len(secs["dev"]) or res.skipped:
+                raise AssertionError(f"test {decoder}: {res}")
+            print(f"test --eval_decoder {decoder} over {res.utterances} dev "
+                  f"utterances [{card}]: {res.batches} batches, "
+                  f"{res.ms_per_batch:.2f} ms/batch, none skipped, WER "
+                  f"{res.wer:.4f}, fused_frontend launches {n}")
+
+        lm_dir = recipe_lm(dev, root, card)
+        t0 = time.perf_counter()
+        wer, n = launched(lambda: decode_cli.main(
+            ["--device", dev.type] + shard_flags
+            + ["--ctc", "True", "--split", "dev", "--log_dir",
+               f"{root}/log_decode", "--apply_lm", "True", "--lm_dir", lm_dir,
+               "--lm_weight", "0.5", "--beam_size", str(BEAM_SIZE),
+               "--beam_logprob", "True"]))
+        launches += n
+        if not np.isfinite(wer) or n == 0:
+            raise AssertionError(f"decode --apply_lm: WER {wer}, {n} "
+                                 "launches")
+        print(f"decode --apply_lm True (beam {BEAM_SIZE}, the LM train_lm "
+              f"wrote) over {len(secs['dev'])} dev utterances [{card}]: "
+              f"{time.perf_counter() - t0:.2f} s wall, WER {wer:.4f}, "
+              f"fused_frontend launches {n}")
+        launches += recipe_serve(dev, root, shard_flags + ["--ctc", "True"],
+                                 card)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -1041,6 +1495,7 @@ def main() -> int:
     launches = phase_serving(dev, card)
     launches += phase_train(dev, card)
     launches += phase_beam(dev, card)
+    launches += phase_recipe(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_frontend", "route": "cuda", "source": KERNEL_SOURCE,

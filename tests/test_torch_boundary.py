@@ -29,10 +29,17 @@ def _run(code_or_args, cwd=REPO, env=None):
                           capture_output=True, text=True, timeout=240)
 
 
+# the recipe stages' entry points, python -m automatic_speech_recognition_
+# torch.<name>, beside train, decode and transcribe
+ENTRY_POINTS = ("train_subword", "preprocess", "create_shards", "test",
+                "train_lm", "sample_lm", "serve")
+
+
 def test_every_port_module_imports_without_jax_or_the_jax_package():
     names = [m.name for m in pkgutil.walk_packages(port.__path__,
                                                    port.__name__ + ".")]
-    assert "automatic_speech_recognition_torch.ops.cuda_frontend" in names
+    assert {f"automatic_speech_recognition_torch.{m}" for m in
+            ("ops.cuda_frontend", *ENTRY_POINTS)} <= set(names)
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['automatic_speech_recognition_tpu'] = None\n"
@@ -71,6 +78,18 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package(path):
         found += [(node.lineno, n) for n in names
                   if n.split(".")[0] in FORBIDDEN]
     assert not found, f"{path.relative_to(REPO)} imports {found}"
+
+
+@pytest.mark.parametrize("name", [n for n in ENTRY_POINTS
+                                  if n not in ("train_subword",
+                                               "create_shards")])
+def test_entry_point_defaults_to_the_gpu_and_refuses_without_one(name):
+    """Each device-using entry point, run as `python -m` with no --device,
+    asks for CUDA and raises on a host without it."""
+    proc = _run([sys.executable, "-m",
+                 f"automatic_speech_recognition_torch.{name}"])
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr, proc.stderr[-2000:]
 
 
 def test_resolve_device_never_falls_back_to_the_cpu():

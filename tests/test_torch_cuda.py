@@ -212,3 +212,134 @@ def test_subsegment_kernel_edge_cases(cuda, feat_type, case):
         fp, lp = frontend.extract_features(audio, audiolen, **kw)
         torch.testing.assert_close(lk, lp, rtol=0, atol=0)
         torch.testing.assert_close(fk, fp, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("speed", [0.9, 1.1])
+def test_resample_on_cuda_matches_cpu(cuda, speed):
+    """resample_rational_device (cuDNN convolution, TF32 off) against the
+    same call on the CPU: atol 1e-5, as the CPU tests hold it to the host
+    resampler; new lengths and masked tails equal."""
+    from automatic_speech_recognition_torch.ops import augmentation as aug
+    rng = np.random.default_rng(3)
+    S = 4 * SR
+    sig = torch.from_numpy((rng.standard_normal((6, S)) * 0.3)
+                           .astype(np.float32))
+    lens = torch.tensor([S, S - 7, S // 2, 3 * SR, 12345, 400],
+                        dtype=torch.int32)
+    frac = aug._rational_speed(speed)
+    up, down = frac.denominator, frac.numerator
+    want, want_len = aug.resample_rational_device(sig, lens, up, down)
+    got, got_len = aug.resample_rational_device(sig.to(cuda), lens.to(cuda),
+                                                up, down)
+    torch.testing.assert_close(got_len.cpu(), want_len, rtol=0, atol=0)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["white", "pink"])
+def test_noise_on_cuda_keeps_snr_padding_and_silence(cuda, kind):
+    """online_noise_perturb on the card: the CPU test's properties (the
+    card's generator draws other numbers): SNR over valid samples within
+    1e-3 dB of the drawn one, padding and silent rows exactly zero."""
+    from automatic_speech_recognition_torch.ops import augmentation as aug
+    cfg = Config(online_noise_snr_low=12.0, online_noise_snr_high=12.0,
+                 online_noise_kind=kind)
+    rng = np.random.default_rng(4)
+    S = 2 * SR
+    sig = (rng.standard_normal((4, S)) * 0.05).astype(np.float32)
+    lens = np.array([S, S - 999, S // 2, S], np.int32)
+    sig[3] = 0.0
+    for i, n in enumerate(lens):
+        sig[i, n:] = 0.0
+    out = aug.online_noise_perturb(
+        torch.Generator(device=cuda).manual_seed(0),
+        torch.from_numpy(sig).to(cuda), torch.from_numpy(lens).to(cuda),
+        cfg).cpu().numpy()
+    for i, n in enumerate(lens):
+        assert not out[i, n:].any()
+    assert not out[3].any()
+    for i in range(3):
+        n = lens[i]
+        added = out[i, :n].astype(np.float64) - sig[i, :n]
+        snr = 10 * np.log10(np.mean(sig[i, :n].astype(np.float64) ** 2)
+                            / np.mean(added ** 2))
+        assert abs(snr - 12.0) < 1e-3, snr
+
+
+@pytest.mark.cuda
+def test_spec_augment_on_cuda(cuda):
+    """spec_augment on the card: masks inside each utterance and within
+    their widths, zeroed values, reproducible from the generator."""
+    from automatic_speech_recognition_torch.ops import augmentation as aug
+    cfg = Config(spec_augment=True, sa_freq_masks=2, sa_freq_width=3,
+                 sa_time_masks=2, sa_time_width=10, sa_time_ratio=0.5)
+    rng = np.random.default_rng(5)
+    audio = torch.from_numpy(rng.standard_normal((8, 64, 13, 3))
+                             .astype(np.float32)).to(cuda)
+    lens = torch.tensor([64, 40, 16, 8, 64, 33, 21, 2], dtype=torch.int32,
+                        device=cuda)
+    gen = lambda: torch.Generator(device=cuda).manual_seed(3)
+    out = aug.spec_augment(gen(), audio, lens, cfg)
+    assert torch.equal(out, aug.spec_augment(gen(), audio, lens, cfg))
+    changed = (out != audio).cpu().numpy()
+    assert changed.any()
+    for b in range(8):
+        n = int(lens[b])
+        tcols = np.nonzero(changed[b].all(axis=(1, 2)))[0]
+        assert (tcols < n).all() and len(tcols) <= 2 * min(10, n // 2)
+        assert len(np.nonzero(changed[b].all(axis=(0, 2)))[0]) <= 6
+    assert (out[torch.from_numpy(changed).to(cuda)] == 0).all()
+
+
+@pytest.mark.cuda
+def test_lm_train_step_on_cuda_matches_cpu(cuda):
+    """Three LM train steps (lstm 2 x 128, the train_lm defaults) from the
+    same weights on the card and the CPU: losses and weights rtol 1e-4 /
+    atol 1e-6 (float32 sums in another order)."""
+    import copy
+    from automatic_speech_recognition_torch.models import char_rnn
+    cfg = char_rnn.LMConfig()
+    rng = np.random.default_rng(6)
+    ids = torch.from_numpy(rng.integers(0, 28, (3, 20, 11)))
+    base = char_rnn.create_lm_train_state(cfg, 0, torch.device("cpu"))
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        model = copy.deepcopy(base.model).to(dev)
+        ts = char_rnn.LMTrainState(model,
+                                   char_rnn.make_lm_optimizer(model, cfg), 0,
+                                   torch.Generator(device=dev).manual_seed(0))
+        state = char_rnn.zero_state(cfg, 20, dev)
+        losses = []
+        for k in range(3):
+            x = ids[k].to(dev)
+            loss, state = char_rnn.lm_train_step(ts, x[:, :-1], x[:, 1:],
+                                                 state, cfg)
+            losses.append(loss.item())
+        runs[dev.type] = (losses, {k: v.cpu() for k, v in
+                                   ts.model.state_dict().items()})
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for k, v in runs["cpu"][1].items():
+        torch.testing.assert_close(runs["cuda"][1][k], v, rtol=1e-4,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat_type", ["mfcc", "fbank"])
+def test_kernel_subnormal_frame_energy(cuda, feat_type):
+    """Frames holding only a few samples of ~1e-22 (a resampler's ringing
+    over digital silence): the kernel's Parseval energy is subnormal there,
+    and it takes speechpy's eps as the plain version's does."""
+    rng = np.random.default_rng(8)
+    S = 2 * SR
+    audio = (rng.standard_normal((4, S)) * 0.1).astype(np.float32)
+    audio[::2, 1600:6400] = 0.0
+    audio[::2, 1600:6400:700] = 4.4e-22
+    audio = torch.from_numpy(audio).to(cuda)
+    audiolen = torch.tensor([S, S, S - 999, S // 2], device=cuda)
+    for cmvn in (True, False):
+        kw = dict(feat_dim=13, feat_type=feat_type, apply_cmvn=cmvn)
+        fk, _ = frontend.extract_features(audio, audiolen, use_kernel=True,
+                                          **kw)
+        fp, _ = frontend.extract_features(audio, audiolen, **kw)
+        torch.testing.assert_close(fk, fp, rtol=RTOL, atol=ATOL)

@@ -168,12 +168,13 @@ def _emulate_kernel(audio, featlen, T, feat_type, apply_cmvn, sr=SR,
     ps = ((re * re + im * im) / np.float32(512))[..., :p["nbins"]]
     mel = np.stack([(ps[..., p["melbin"][a:b]] * p["melw"][a:b]).sum(-1)
                     for a, b in zip(p["melptr"][:-1], p["melptr"][1:])], -1)
-    mel = np.where(mel == 0, np.float32(tfe.EPS_ZERO), mel)
+    mel = np.where(mel < tfe.FLT_MIN, np.float32(tfe.EPS_ZERO), mel)
     ks = p["ksup"]
     if feat_type == "mfcc":
         feat = np.log(mel) @ p["dct"].reshape(p["F"], D)
         e = 0.5 * q[..., h].sum(-1) + 0.5 * (ps[..., ks] + ps[..., ks + 1])
-        feat[..., 0] = np.log(np.where(e == 0, np.float32(tfe.EPS_ZERO), e))
+        feat[..., 0] = np.log(np.where(e < tfe.FLT_MIN,
+                                       np.float32(tfe.EPS_ZERO), e))
     else:
         feat = mel
     feat = feat.astype(np.float32)                   # (B, nt, tt, D)
@@ -241,6 +242,39 @@ def test_kernel_plan_reproduces_the_plain_path(rng, feat_type, apply_cmvn,
     got = _emulate_kernel(audio, lt, ft.shape[1], feat_type, apply_cmvn, sr,
                           num_sms)
     assert got.shape == ft.shape
+    np.testing.assert_allclose(got, ft, rtol=RTOL, atol=ATOL)
+
+
+def _ringing_batch(rng, S=2 * SR):
+    """Noise rows, two with a stretch of frames holding only a few samples
+    of about 1e-22 (a resampler's ringing over digital silence): their
+    power and energy are subnormal in float32."""
+    audio = (rng.standard_normal((4, S)) * 0.1).astype(np.float32)
+    for r in (0, 2):
+        audio[r, 1600:6400] = 0.0
+        audio[r, 1600:6400:700] = 4.4e-22
+    return audio, np.array([S, S, S - 999, S // 2], np.int32)
+
+
+@pytest.mark.parametrize("apply_cmvn", [True, False])
+@pytest.mark.parametrize("feat_type", ["mfcc", "fbank"])
+def test_subnormal_power_counts_as_zero(rng, feat_type, apply_cmvn):
+    """A frame of ringing-level samples: its subnormal mel sums and energy
+    take speechpy's eps in the plain version, and the kernel's arithmetic
+    (Parseval energy from the time domain, which keeps the subnormal the
+    plain per-bin power underflows) agrees with it."""
+    audio, audiolen = _ringing_batch(rng)
+    ft, lt = _port(audio, audiolen, feat_dim=13, feat_type=feat_type,
+                   apply_cmvn=False)
+    quiet = ft[0, 12:28]
+    if feat_type == "mfcc":
+        np.testing.assert_allclose(quiet[:, 0], np.log(tfe.EPS_ZERO),
+                                   rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(quiet, np.float32(tfe.EPS_ZERO))
+    ft, lt = _port(audio, audiolen, feat_dim=13, feat_type=feat_type,
+                   apply_cmvn=apply_cmvn)
+    got = _emulate_kernel(audio, lt, ft.shape[1], feat_type, apply_cmvn)
     np.testing.assert_allclose(got, ft, rtol=RTOL, atol=ATOL)
 
 

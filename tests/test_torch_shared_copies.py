@@ -8,7 +8,9 @@ same, apart from the parts the copy leaves out on purpose, listed below)
 and by behaviour on the same inputs (configs and flag parsing, tokenizers,
 the NumPy frontend golden, ARSH shards written by one package and read by
 the other, natively and in Python, loader batches, the speed-rate bound,
-synthesized speech).
+synthesized speech).  Two modules are copied in part beside the port's
+own code: the host half of ops/augmentation.py and
+models/char_rnn.BatchGenerator.
 """
 
 import ast
@@ -280,3 +282,60 @@ def test_formant_synth_same_generator():
     np.testing.assert_array_equal(got, want)
     assert {k: dataclasses.astuple(v) for k, v in tsynth.PHONES.items()} \
         == {k: dataclasses.astuple(v) for k, v in jsynth.PHONES.items()}
+
+
+# the host half of ops/augmentation.py, copied as it is beside the port's
+# own device half; and char_rnn.BatchGenerator beside the port's LM
+HOST_HALF = ("_KAISER_BETA", "_NUM_ZEROS", "_rational_speed",
+             "design_resample_filter", "_resample_sinc", "speed_perturb",
+             "volume_perturb", "SPEED_LIST", "speed_augment_all",
+             "host_noise", "make_degrader", "_parse_rates",
+             "_rate_fractions", "worst_stretch_len", "_pink_fir")
+
+
+@pytest.mark.parametrize("module,names", [
+    ("ops/augmentation.py", HOST_HALF),
+    ("models/char_rnn.py", ("BatchGenerator",))])
+def test_partial_copy_keeps_the_original_source(module, names):
+    want = _definitions(JAX_PKG / module)[0]
+    got = _definitions(PORT / module)[0]
+    for name in names:
+        assert got[name] == want[name], f"{module}: {name} differs"
+
+
+@pytest.mark.parametrize("speed", [0.9, 1.1, 1.0, 0.95])
+@pytest.mark.parametrize("quality", ["sinc", "linear"])
+def test_speed_perturb_same_samples(rng, speed, quality):
+    sig = (0.3 * rng.standard_normal(4001)).astype(np.float32)
+    np.testing.assert_array_equal(
+        taug.speed_perturb(sig, speed, quality),
+        jaug.speed_perturb(sig, speed, quality))
+    np.testing.assert_array_equal(taug.speed_augment_all([sig], speed)[0],
+                                  jaug.speed_augment_all([sig], speed)[0])
+
+
+def test_volume_noise_and_degrader_same_outputs(rng):
+    sig = (0.5 * rng.standard_normal(3000)).astype(np.float32)
+    np.testing.assert_array_equal(taug.volume_perturb(sig, 2.5),
+                                  jaug.volume_perturb(sig, 2.5))
+    for kind in ("white", "pink"):
+        np.testing.assert_array_equal(
+            taug.host_noise(np.random.default_rng(1), 999, kind),
+            jaug.host_noise(np.random.default_rng(1), 999, kind))
+    got = taug.make_degrader("5,15", "pink", 0.5)
+    want = jaug.make_degrader("5,15", "pink", 0.5)
+    for seed in range(4):
+        np.testing.assert_array_equal(got(sig, np.random.default_rng(seed)),
+                                      want(sig, np.random.default_rng(seed)))
+    assert taug.make_degrader("", "white", 0.0) is None
+    np.testing.assert_array_equal(taug.design_resample_filter(10, 9),
+                                  jaug.design_resample_filter(10, 9))
+
+
+def test_batch_generator_same_rows(rng):
+    from automatic_speech_recognition_tpu.models import char_rnn as jcr
+    from automatic_speech_recognition_torch.models import char_rnn as tcr
+    ids = rng.integers(0, 28, 301).astype(np.int32)
+    j, t = jcr.BatchGenerator(ids, 7, 10), tcr.BatchGenerator(ids, 7, 10)
+    for _ in range(12):
+        np.testing.assert_array_equal(t.next(), j.next())

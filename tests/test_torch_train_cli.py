@@ -91,12 +91,25 @@ def test_profile_dir_and_verbose_logging(tmp_path, rng):
     ("--steps_per_dispatch", "2", "Not ported"),
     ("--recycle_after_steps", "5", "Not ported"),
     ("--num_partitions", "2", "item 8"),
-    ("--spec_augment", "True", "item 5"),
-    ("--online_volume_perturb", "True", "item 5"),
 ])
 def test_tpu_only_flags_are_refused(tmp_path, flag, value, match):
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(_args(str(tmp_path)) + [flag, value])
+
+
+def test_augmentation_flags_train(tmp_path, rng):
+    """The online waveform perturbations and SpecAugment run inside the
+    step: the loader buckets by the slowest rate's length, and the losses
+    stay finite."""
+    d = str(tmp_path)
+    _shards(d, rng)
+    ts, hist = train_cli.main(_args(d) + [
+        "--epoch", "1", "--steps_per_epoch", "3",
+        "--online_speed_perturb", "True", "--online_volume_perturb", "True",
+        "--online_noise_perturb", "True", "--online_noise_kind", "pink",
+        "--spec_augment", "True"])
+    assert ts.step == 3 and np.all(np.isfinite(hist["loss"]))
+    assert np.all(np.isfinite(hist["grad_norm"]))
 
 
 def test_a_missing_gpu_is_refused(tmp_path, monkeypatch):
