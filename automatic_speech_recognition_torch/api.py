@@ -8,8 +8,10 @@ automatic_speech_recognition_tpu/api.py).
 The path: pad to a whole second -> frontend (the fused CUDA kernel on a
 GPU, the plain path on the CPU) -> greedy LAS, or batched beam search
 (decoding/beam.py, with the recognizer's fusion LM and cfg's beam flags)
--> detokenization of rank 0.  Not ported: the multi-device mesh (ROADMAP
-item 8) and int8 decoder weights (item 6).
+-> detokenization of rank 0.  cfg.dtype 'bfloat16' decodes in bf16
+(models/las.compute_cast); cfg.quantize_decoder 'int8' quantizes the
+restored float checkpoint's speller and the fusion LM's cells
+(ops/quant.py).  Not ported: the multi-device mesh (ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from automatic_speech_recognition_torch.utils.tokenizer import get_tokenizer
 from .decoding import beam as beam_lib
 from .models import char_rnn
 from .models.las import LAS
-from .ops import frontend
+from .ops import frontend, quant
 from .training import trainer
 from .training.checkpoint import CheckpointManager
 from .utils.device import resolve_device
@@ -53,19 +55,19 @@ class Recognizer:
                         device: Union[str, torch.device] = "cuda"
                         ) -> "Recognizer":
         """The port's LAS checkpoint in save_dir (epoch -1 = latest) and,
-        with lm_dir, the fusion LM of that LM directory."""
-        if cfg.quantize_decoder != "none":
-            raise NotImplementedError(
-                "--quantize_decoder (int8 decoder weights) is not ported yet "
-                "(ROADMAP item 6)")
+        with lm_dir, the fusion LM of that LM directory; both quantized
+        under cfg.quantize_decoder 'int8'."""
         tokenizer = get_tokenizer(cfg.unit, cfg.subword_dir)
         cfg = cfg.replace(vocab_size=tokenizer.get_vocab_size())
         model = CheckpointManager(save_dir).load_weights(LAS(cfg), epoch)
         if model is None:
             raise FileNotFoundError(f"no checkpoint in {save_dir}")
+        model = quant.maybe_quantize(model, cfg)
         lm = lm_cfg = None
         if lm_dir:
             lm, lm_cfg, _, _ = char_rnn.load_lm_dir(lm_dir)
+            if cfg.quantize_decoder != "none":
+                lm = quant.quantize_lm(lm, lm_cfg)
         return cls(model, cfg, tokenizer, device, lm, lm_cfg)
 
     def _features(self, signals: Sequence[np.ndarray], pad_seconds: int = 0

@@ -15,8 +15,9 @@ fusion LM (--apply_lm, --lm_dir) a port LM directory
 and decoded --decode_batch at a time, padded to --decode_pad_quantum
 frames, by decoding/beam.beam_search; rank 0 is the hypothesis.  Writes
 decode_pred.txt and decode_gt.txt to --log_dir and prints `WER: x.xxxx`
-(and `CER: x.xxxx` with --report_cer).  Refused: --num_partitions > 1
-(multi-GPU is ROADMAP item 8) and --quantize_decoder (item 6).
+(and `CER: x.xxxx` with --report_cer).  --dtype bfloat16 decodes in
+bf16, --quantize_decoder int8 with int8 speller (and fusion-LM cell)
+weights.  Refused: --num_partitions > 1 (multi-GPU is ROADMAP item 8).
 `batch_iter` is decode.py's, written again because that module imports
 JAX.
 
@@ -36,7 +37,6 @@ import sys
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from automatic_speech_recognition_torch.config import (
     Config, apply_saved_model_config, check_model_config, parse_args)
@@ -52,7 +52,9 @@ from .models import char_rnn
 from .models.las import LAS
 from .ops import frontend
 from .training.checkpoint import CheckpointManager
-from .utils.device import disable_tf32, resolve_device, split_device
+from .ops.quant import maybe_quantize, quantize_lm
+from .utils.device import (disable_tf32, host_tensor, resolve_device,
+                           split_device)
 
 log = logging.getLogger("decode")
 
@@ -106,10 +108,6 @@ def check_flags(cfg: Config) -> None:
         raise NotImplementedError(
             "multi-GPU decoding (--num_partitions > 1) is not ported yet "
             "(ROADMAP item 8)")
-    if cfg.quantize_decoder != "none":
-        raise NotImplementedError(
-            "--quantize_decoder (int8 decoder weights) is not ported yet "
-            "(ROADMAP item 6)")
     if cfg.ctc_beam_weight > 0:
         if not cfg.ctc:
             raise ValueError(
@@ -172,7 +170,9 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
                                                          cfg.restore_epoch)
     if model is None:
         raise FileNotFoundError(f"no LAS checkpoint in {cfg.save_dir}")
-    model = model.to(device).eval()
+    model = maybe_quantize(model.to(device).eval(), cfg)
+    if lm is not None and cfg.quantize_decoder != "none":
+        lm = quantize_lm(lm, lm_cfg)
 
     error, N = 0, 0
     hyps, refs = [], []
@@ -180,8 +180,8 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
                                       cfg.decode_pad_quantum):
         max_steps = max(int(cfg.convert_rate * audio.shape[1]), 1)
         res = beam_lib.beam_search(
-            model, torch.from_numpy(audio).to(device),
-            torch.from_numpy(lens).to(device), cfg, max_steps,
+            model, host_tensor(audio).to(device),
+            host_tensor(lens).to(device), cfg, max_steps,
             cfg.beam_size, cfg.beam_logprob, lm, lm_cfg)
         toks, tlen = res.tokens.cpu().numpy(), res.lengths.cpu().numpy()
         for b, y in enumerate(ys):

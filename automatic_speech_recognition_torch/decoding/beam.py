@@ -25,6 +25,11 @@ as the JAX package's vmapped `_beam_search_single` does:
   [1, max_steps] and computed in float32 as JAX does; its beams still
   live then join the bank, with their coverage terms.
 
+Under cfg.dtype 'bfloat16' the model runs in models/las.compute_cast:
+the decoder states and the previous alignment are carried in bfloat16,
+the logits, the LM add (the LM stays float32), the CTC log-probs, the
+cumulative scores and the bank in float32, as the JAX package's carry.
+
 Frozen rows: a vmapped while_loop steps until every utterance is done
 and leaves the carry of a finished utterance unchanged.  Here every carry
 update is masked per utterance with active = (t < dec_step) &
@@ -156,9 +161,19 @@ def beam_search(model: LAS, feats: torch.Tensor, featlen: torch.Tensor,
         raise ValueError(
             "ctc_beam_weight > 0 needs a checkpoint trained with "
             "--ctc True (no ctc_head in the restored parameters)")
-    use_lm = lm is not None
 
-    enc_out, enc_len = model.listener(feats, featlen)
+    with las.compute_cast(cfg, model):
+        return _beam_search(model, feats, featlen, cfg, max_steps, beam_size,
+                            logprob, lm, lm_cfg, use_ctc, use_cov)
+
+
+def _beam_search(model: LAS, feats, featlen, cfg: Config, max_steps: int,
+                 beam_size: int, logprob: bool, lm, lm_cfg, use_ctc: bool,
+                 use_cov: bool) -> BeamResult:
+    sp = model.speller
+    use_lm = lm is not None
+    cdt = las.compute_dtype(cfg)
+    enc_out, enc_len = model.listener(feats.to(cdt), featlen)
     dec_step = step_budget(featlen, cfg, max_steps)
     B, T, _ = enc_out.shape
     K, V = beam_size, cfg.vocab_size
@@ -182,9 +197,9 @@ def beam_search(model: LAS, feats: torch.Tensor, featlen: torch.Tensor,
     i64 = dict(dtype=torch.long, device=dev)
     t = torch.zeros((B,), **i64)
     prev_ids = torch.full((B, K), SOS_ID, **i64)
-    prev_align = torch.zeros((B, K, T), device=dev)
+    prev_align = torch.zeros((B, K, T), dtype=cdt, device=dev)
     dec_states = torch.zeros((len(sp.cells), BK, sp.out.in_features),
-                             device=dev)
+                             dtype=cdt, device=dev)
     cum = torch.zeros((B, K), device=dev)
     valid = (torch.arange(K, device=dev) == 0).expand(B, K)
     tokens = torch.zeros((B, K, max_steps), **i64)

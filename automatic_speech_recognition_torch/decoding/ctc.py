@@ -2,6 +2,8 @@
 automatic_speech_recognition_tpu/decoding/ctc.py): argmax per encoder
 frame, collapse repeats, drop blanks (blank id = vocab_size, as in the
 CTC loss) and <PAD> (id 0, which no label holds), over real frames only.
+The listener and the head run in cfg's compute dtype
+(models/las.compute_cast).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch.nn.functional as F
 
 from automatic_speech_recognition_torch.config import Config
 
+from ..models import las
 from ..models.las import LAS
 
 
@@ -24,8 +27,10 @@ def ctc_greedy_decode(model: LAS, feats: torch.Tensor, featlen: torch.Tensor,
     if model.speller.ctc_head is None:
         raise ValueError("CTC decoding needs a model trained with --ctc True "
                          "(no ctc_head)")
-    enc_out, enc_len = model.listener(feats, featlen)
-    path = model.speller.ctc_head(enc_out).argmax(-1)            # (B, T)
+    with las.compute_cast(cfg, model):
+        enc_out, enc_len = model.listener(feats.to(las.compute_dtype(cfg)),
+                                          featlen)
+        path = model.speller.ctc_head(enc_out).argmax(-1)        # (B, T)
     B, T = path.shape
     blank = cfg.vocab_size
     valid = (torch.arange(T, device=path.device)[None, :]

@@ -14,7 +14,11 @@ softmax head, with the reference's quirks kept:
 - dropout is output dropout on every cell (the recurrent state stays
   undropped) and input dropout on the embedded ids, training only, chosen
   by an explicit is_training and drawn from an explicit torch.Generator,
-  as in models/las.py.
+  as in models/las.py;
+- for fusion under --quantize_decoder int8, ops/quant.quantize_lm turns
+  the rnn / lstm cells into int8 QuantLinear modules, which the cell
+  functions call as the Linear they replace; the LM is never cast to
+  bf16 (the JAX package casts only the LAS parameters).
 
 Training: `lm_train_step` is one optimization step over (B, T) ids with
 the recurrent state carried across steps as a value (detached between

@@ -5,7 +5,9 @@ automatic_speech_recognition_tpu.models.las.las_init returns (params and
 BN state), with every leaf a NumPy array, and loads them; `to_jax_params`
 is its inverse.  `from_jax_lm_params` / `to_jax_lm_params` do the same for
 models/char_rnn.lm_init's tree (rnn, lstm and gru cells, one-hot or
-embedding input).  Layouts: dense (in, out) <-> Linear (out, in); conv HWIO
+embedding input).  Both listeners: 'cnn' (conv{0,1}, bn_conv{0,1},
+layer_{i}) and 'pblstm' (birnn0, proj0, pyr_{i}/{birnn, proj}; no BN
+state).  Layouts: dense (in, out) <-> Linear (out, in); conv HWIO
 <-> OIHW; a BiRNN cell's fused (D + U, U) kernel <-> nn.RNN weight_ih =
 w[:D].T, weight_hh = w[D:].T, bias_ih = b (bias_hh is a zero buffer);
 location conv (K, 1, C) <-> (C, 1, K).  A missing or extra key, or a wrong
@@ -103,10 +105,7 @@ def _bn(targets, path: str, bn) -> None:
     targets[f"state/{path}/var"] = [(bn.var, _same)]
 
 
-def _targets(model: las.LAS) -> Dict[str, _Target]:
-    """JAX path ('params/...' or 'state/...') -> port tensors to fill."""
-    t: Dict[str, _Target] = {}
-    lis, sp = model.listener, model.speller
+def _cnn_targets(t: Dict[str, _Target], lis: las.Listener) -> None:
     for i, conv in enumerate((lis.conv0, lis.conv1)):
         t[f"params/listener/conv{i}/w"] = [
             (conv.weight, _hwio_to_oihw)]
@@ -121,6 +120,20 @@ def _targets(model: las.LAS) -> Dict[str, _Target]:
         if layer.bn_extra is not None:
             _bn(t, f"{p}/bn_extra", layer.bn_extra)
         _bn(t, f"{p}/bn_main", layer.bn_main)
+
+
+def _targets(model: las.LAS) -> Dict[str, _Target]:
+    """JAX path ('params/...' or 'state/...') -> port tensors to fill."""
+    t: Dict[str, _Target] = {}
+    lis, sp = model.listener, model.speller
+    if isinstance(lis, las.PBLSTMListener):
+        _birnn(t, "params/listener/birnn0", lis.birnn0)
+        _dense(t, "params/listener/proj0", lis.proj0)
+        for i, stage in enumerate(lis.pyr):
+            _birnn(t, f"params/listener/pyr_{i}/birnn", stage.birnn)
+            _dense(t, f"params/listener/pyr_{i}/proj", stage.proj)
+    else:
+        _cnn_targets(t, lis)
     t["params/speller/embedding/table"] = [(sp.embedding.weight, _same)]
     a = sp.attention
     for name in ("w_h", "w_s") + (("w_f",) if a.mode == "loc" else ()):
@@ -186,7 +199,8 @@ def to_jax_params(model: las.LAS) -> Tuple[Dict, Dict]:
     """(params, bn_state): the model's weights and BN statistics as the
     JAX package's NumPy pytrees, the inverse of from_jax_params."""
     tree = _to_tree(_targets(model))
-    return tree["params"], tree["state"]
+    # a pblstm listener has no BN leaves: its state is {'listener': {}}
+    return tree["params"], tree.get("state", {"listener": {}})
 
 
 def _lm_targets(model: char_rnn.CharRNN) -> Dict[str, _Target]:

@@ -4,7 +4,13 @@ automatic_speech_recognition_tpu/models/las.py).
 - Listener 'cnn': 2 stride-2 SAME convs (time/4, feat/4) + ReLU, flatten
   (B, T, Dr, C) with C fastest, then N x {dropout -> BiRNN -> proj -> BN ->
   ReLU} (an extra BN per layer and after each conv when cfg.apply_bn).
-  Lengths follow ceil_half twice.
+  Lengths follow ceil_half twice.  Output width enc_units.
+- Listener 'pblstm': (B, T, D, 3) flattened to (B, T, 3D), dropout, BiRNN,
+  tanh(proj) (2u -> 2u), then N pyramid stages of {dropout -> BiRNN ->
+  zero-pad an odd T by one frame at the padded tail -> concat even and odd
+  frames (4u) -> tanh(proj) (4u -> 2u)}, lengths ceil_half per stage.
+  Output width 2 enc_units (enc_out_dim); no BN state.  The BiRNNs run
+  over the padding as the JAX scans do: sequences are never packed.
 - Speller: embedding, stacked tanh RNN cells, additive or location-aware
   attention whose query is the concat of ALL layer states in layer order,
   output dense.  <SOS> (id 1) feeds the first step; states and the first
@@ -16,18 +22,24 @@ automatic_speech_recognition_tpu/models/las.py).
 - Losses: masked label-smoothed CE (eps 0.01) and the optional CTC (blank
   = vocab_size), with the JAX package's LR and tf-rate schedules;
   cfg.spec_augment masks the training features first
-  (ops/augmentation.spec_augment).
+  (ops/augmentation.spec_augment), before the compute cast.
+- cfg.dtype 'bfloat16': compute_cast runs the forward on bfloat16 copies
+  of the float32 master parameters (and of the BiRNNs' zero bias_hh
+  buffers); BN moving statistics and int8 w_scale buffers stay float32,
+  so does every state the optimizer and checkpoints see.  Logits, alphas
+  and CTC logits come back float32.
 
 Training branches are chosen by an explicit is_training, never by
 nn.Module.training (cuDNN's RNN backward needs train mode); randomness
-comes from an explicit torch.Generator.  float32 only: 'pblstm' and bf16
-compute_cast are not ported.
+comes from an explicit torch.Generator.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Tuple, Union
+import threading
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -52,13 +64,60 @@ def ceil_half(x):
     return (x + x % 2) // 2
 
 
-def _check_supported(cfg: Config) -> None:
-    if cfg.enc_type != "cnn":
-        raise NotImplementedError(f"enc_type {cfg.enc_type!r}: only 'cnn' "
-                                  "is ported")
-    if cfg.dtype != "float32":
-        raise NotImplementedError(f"dtype {cfg.dtype!r}: only float32 is "
-                                  "ported")
+def enc_out_dim(cfg: Config) -> int:
+    """The listener's output width: enc_units for 'cnn', 2 enc_units for
+    'pblstm'."""
+    return cfg.enc_units if cfg.enc_type == "cnn" else 2 * cfg.enc_units
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    if cfg.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"--dtype must be 'float32' or 'bfloat16', got "
+                         f"{cfg.dtype!r}")
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# compute_cast swaps the tensors of a shared model: one cast at a time in
+# the process (serving's batcher and its callers may share a Recognizer)
+_CAST_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def compute_cast(cfg: Config, model: nn.Module) -> Iterator[None]:
+    """Mixed precision, as the JAX package's compute_cast: under
+    cfg.dtype 'bfloat16', inside the block the model's float32 parameters
+    and its RNNs' zero bias_hh buffers are bfloat16 copies, which autograd
+    links to the float32 masters (gradients land in float32).  BN moving
+    statistics, int8 weights and their float32 w_scale are left as they
+    are.  float32 is a no-op; a nested cast of the same model too.  A
+    backward that recomputes the forward (cfg.remat) must run inside the
+    same block.  Casts of one model from several threads take turns; a
+    float32 caller sharing the model meanwhile would see the copies, so a
+    model serves one dtype at a time."""
+    if compute_dtype(cfg) == torch.float32:
+        yield
+        return
+    with _CAST_LOCK:
+        if getattr(model, "_cast_active", False):
+            yield
+            return
+        saved = []
+        for mod in model.modules():
+            tables = [mod._parameters]
+            if isinstance(mod, nn.RNN):
+                tables.append(mod._buffers)
+            saved += [(table, name, t) for table in tables
+                      for name, t in table.items()
+                      if t is not None and t.dtype == torch.float32]
+        try:
+            for table, name, t in saved:
+                table[name] = t.to(torch.bfloat16)
+            model._cast_active = True
+            yield
+        finally:
+            for table, name, t in saved:
+                table[name] = t
+            model._cast_active = False
 
 
 class ListenerLayer(nn.Module):
@@ -126,10 +185,55 @@ class Listener(nn.Module):
         return x, audiolen, state
 
 
+class PyramidStage(nn.Module):
+    def __init__(self, units: int):
+        super().__init__()
+        self.birnn = L.make_birnn(2 * units, units)
+        self.proj = nn.Linear(4 * units, 2 * units)
+
+
+class PBLSTMListener(nn.Module):
+    """Pyramidal BiRNN listener: (B, T, D, 3) features ->
+    (B, ceil(T / 2^N), 2 enc_units)."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        u = cfg.enc_units
+        self.birnn0 = L.make_birnn(3 * cfg.feat_dim, u)
+        self.proj0 = nn.Linear(2 * u, 2 * u)
+        self.pyr = nn.ModuleList(PyramidStage(u)
+                                 for _ in range(cfg.num_enc_layers))
+
+    def forward(self, audio: torch.Tensor, audiolen: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Inference: (enc_out (B, T', 2u), enc_len (B,))."""
+        x, audiolen, _ = self.encode(audio, audiolen)
+        return x, audiolen
+
+    def encode(self, audio: torch.Tensor, audiolen: torch.Tensor,
+               is_training: bool = False, dropout_rate: float = 0.0,
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, BNState]:
+        """(enc_out, enc_len, {}): the pyramid has no BN state."""
+        B, T, D, C = audio.shape
+        x = L.dropout(audio.reshape(B, T, D * C), dropout_rate, is_training,
+                      generator)
+        x = torch.tanh(self.proj0(L.birnn_apply(self.birnn0, x)))
+        for stage in self.pyr:
+            x = L.birnn_apply(stage.birnn, L.dropout(
+                x, dropout_rate, is_training, generator))
+            if x.shape[1] % 2:
+                x = F.pad(x, (0, 0, 0, 1))          # onto the padded tail
+            x = torch.tanh(stage.proj(torch.cat([x[:, ::2], x[:, 1::2]],
+                                                -1)))
+            audiolen = ceil_half(audiolen)
+        return x, audiolen, {}
+
+
 class Speller(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
-        h_dim = cfg.enc_units                     # cnn listener width
+        h_dim = enc_out_dim(cfg)
         self.embedding = nn.Embedding(cfg.vocab_size, cfg.embedding_size)
         self.attention = att.Attention(
             cfg.mode, h_dim, cfg.dec_units * cfg.num_dec_layers,
@@ -240,7 +344,8 @@ def speller_train(sp: Speller, cfg: Config, enc_out, enc_len,
         ids = teacher[:, t].long()
         if sampling:
             coin = torch.rand((), generator=generator, device=dev)
-            sampled = torch.multinomial(torch.softmax(lg.detach(), -1), 1,
+            sampled = torch.multinomial(torch.softmax(lg.detach().float(),
+                                                      -1), 1,
                                         generator=generator)[:, 0]
             ids = torch.where(tf_rate > coin, ids, sampled)
         emb = L.dropout(L.embedding_lookup(table, ids, vn),
@@ -253,17 +358,26 @@ def speller_train(sp: Speller, cfg: Config, enc_out, enc_len,
 class LAS(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
-        _check_supported(cfg)
-        self.listener = Listener(cfg)
+        compute_dtype(cfg)                          # refuse an unknown dtype
+        if cfg.enc_type == "cnn":
+            self.listener = Listener(cfg)
+        elif cfg.enc_type == "pblstm":
+            self.listener = PBLSTMListener(cfg)
+        else:
+            raise ValueError(f"--enc_type must be 'cnn' or 'pblstm', got "
+                             f"{cfg.enc_type!r}")
         self.speller = Speller(cfg)
 
     def forward(self, audio: torch.Tensor, audiolen: torch.Tensor,
                 dec_steps: int):
-        """Greedy inference.  Returns (logits, alphas, enc_len)."""
+        """Greedy inference in the dtype of the weights the model holds
+        (bfloat16 inside compute_cast).  Returns (logits, alphas) in
+        float32 and enc_len."""
+        audio = audio.to(self.speller.embedding.weight.dtype)
         enc_out, enc_len = self.listener(audio, audiolen)
         logits, alphas = speller_greedy(self.speller, enc_out, enc_len,
                                         dec_steps)
-        return logits, alphas, enc_len
+        return logits.float(), alphas.float(), enc_len
 
 
 def las_forward(model: LAS, audio, audiolen, cfg: Config, dec_steps: int,
@@ -271,21 +385,25 @@ def las_forward(model: LAS, audio, audiolen, cfg: Config, dec_steps: int,
                 is_training: bool = True,
                 generator: Optional[torch.Generator] = None,
                 tf_rate: Union[float, torch.Tensor] = 1.0):
-    """Full encoder-decoder forward.  Returns (logits, ctc_logits, alphas,
-    enc_len, new BN state); ctc_logits is None without cfg.ctc.  Training
-    runs the teacher's first dec_steps tokens; inference is greedy."""
-    enc_out, enc_len, lstate = model.listener.encode(
-        audio, audiolen, is_training, cfg.dropout_rate, generator)
-    sp = model.speller
-    ctc_logits = sp.ctc_head(enc_out) if sp.ctc_head is not None else None
-    if is_training:
-        logits, alphas = speller_train(sp, cfg, enc_out, enc_len,
-                                       teacher[:, :dec_steps], generator,
-                                       tf_rate)
-    else:
-        logits, alphas = speller_greedy(sp, enc_out, enc_len, dec_steps)
+    """Full encoder-decoder forward in cfg's compute dtype.  Returns
+    (logits, ctc_logits, alphas, enc_len, new BN state), the first three in
+    float32; ctc_logits is None without cfg.ctc.  Training runs the
+    teacher's first dec_steps tokens; inference is greedy."""
+    with compute_cast(cfg, model):
+        enc_out, enc_len, lstate = model.listener.encode(
+            audio.to(compute_dtype(cfg)), audiolen, is_training,
+            cfg.dropout_rate, generator)
+        sp = model.speller
+        ctc_logits = (sp.ctc_head(enc_out).float()
+                      if sp.ctc_head is not None else None)
+        if is_training:
+            logits, alphas = speller_train(sp, cfg, enc_out, enc_len,
+                                           teacher[:, :dec_steps], generator,
+                                           tf_rate)
+        else:
+            logits, alphas = speller_greedy(sp, enc_out, enc_len, dec_steps)
     state = {f"listener.{k}": v for k, v in lstate.items()}
-    return logits, ctc_logits, alphas, enc_len, state
+    return logits.float(), ctc_logits, alphas.float(), enc_len, state
 
 
 @torch.no_grad()

@@ -19,7 +19,12 @@ purpose:
   the batch's (all axes but the last, padded positions included, biased
   variance, float32), with the moving update 0.99 old + 0.01 batch;
 - dropout is inverted dropout; the embedding's variational noise is
-  0.075 N(0, 1) over the whole table per lookup.
+  0.075 N(0, 1) over the whole table per lookup;
+- under bf16 compute (models/las.compute_cast) batch norm keeps JAX's
+  bn_apply dtype flow: statistics in float32, cast to the activation's
+  dtype where they meet it;
+- a cell or dense layer may be an int8 ops/quant.QuantLinear (inference
+  only), called like the nn.Linear it replaces.
 
 Randomness comes from an explicit torch.Generator on the tensor's device:
 a stochastic function given none is a no-op, as a JAX function given no
@@ -34,6 +39,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .quant import Dense
 
 
 def glorot_uniform_(weight: torch.Tensor, fan_in: int, fan_out: int,
@@ -54,13 +61,13 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
     return F.embedding(ids, table)
 
 
-def rnn_cell_apply(cell: nn.Linear, x: torch.Tensor,
+def rnn_cell_apply(cell: Dense, x: torch.Tensor,
                    h: torch.Tensor) -> torch.Tensor:
     """Vanilla tanh RNN cell, one fused Linear over [x, h]."""
     return torch.tanh(cell(torch.cat([x, h], -1)))
 
 
-def lstm_cell_apply(cell: nn.Linear, x: torch.Tensor,
+def lstm_cell_apply(cell: Dense, x: torch.Tensor,
                     state: Tuple[torch.Tensor, torch.Tensor]
                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
                                                    torch.Tensor]]:
@@ -133,8 +140,10 @@ def conv2d_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def bn_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
              mean: torch.Tensor, var: torch.Tensor,
              eps: float = 1e-3) -> torch.Tensor:
-    """Inference batch norm over the last axis."""
-    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+    """Inference batch norm over the last axis; the float32 statistics
+    are cast to x's dtype."""
+    return ((x - mean.to(x.dtype)) * torch.rsqrt(var + eps).to(x.dtype)
+            * scale + bias)
 
 
 def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -150,7 +159,8 @@ def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     with torch.no_grad():
         new = (momentum * mean + (1 - momentum) * b_mean,
                momentum * var + (1 - momentum) * b_var)
-    y = (x - b_mean) * torch.rsqrt(b_var + eps) * scale + bias
+    y = ((x - b_mean.to(x.dtype)) * torch.rsqrt(b_var + eps).to(x.dtype)
+         * scale + bias)
     return y, new
 
 

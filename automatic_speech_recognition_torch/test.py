@@ -18,8 +18,10 @@ flags from the training run's config.json, and flags that still differ
 from it are logged.  Writes test_pred.txt and test_gt.txt to --log_dir
 and prints `WER: x.xxxx` (and `CER: x.xxxx` with --report_cer).  As in
 test.py, a batch that fails is skipped; here it is logged with its
-traceback and counted.  Refused: --quantize_decoder (ROADMAP item 6) and
---num_partitions > 1 (item 8).
+traceback and counted.  --dtype bfloat16 decodes in bf16 (the loader's
+bf16 feature batches reach the model bit for bit), --quantize_decoder
+int8 with int8 speller weights (ops/quant.py).  Refused: --num_partitions
+> 1 (ROADMAP item 8).
 
 Tiny CPU run:
   python -m automatic_speech_recognition_torch.test --device cpu \\
@@ -55,7 +57,9 @@ from .models.las import LAS
 from .ops import frontend
 from .training import trainer
 from .training.checkpoint import CheckpointManager
-from .utils.device import disable_tf32, resolve_device, split_device
+from .ops.quant import maybe_quantize
+from .utils.device import (disable_tf32, host_tensor, resolve_device,
+                           split_device)
 
 log = logging.getLogger("test")
 
@@ -82,10 +86,6 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalResult:
         cfg, overridden = apply_saved_model_config(cfg, cfg.save_dir)
         for line in overridden:
             log.info("model flag from training snapshot: %s", line)
-    if cfg.quantize_decoder != "none":
-        raise NotImplementedError(
-            "--quantize_decoder (int8 decoder weights) is not ported yet "
-            "(ROADMAP item 6)")
     if cfg.num_partitions > 1:
         raise NotImplementedError(
             "multi-GPU evaluation (--num_partitions > 1) is not ported yet "
@@ -121,7 +121,7 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalResult:
     model = ckpt.load_weights(LAS(cfg), cfg.restore_epoch)
     if model is None:
         raise FileNotFoundError(f"no checkpoint found in {cfg.save_dir}")
-    model = model.to(device).eval()
+    model = maybe_quantize(model.to(device).eval(), cfg)
     log.info("restored epoch %s on %s",
              cfg.restore_epoch if cfg.restore_epoch >= 0
              else ckpt.latest_epoch(), device)
@@ -139,8 +139,8 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalResult:
             audiolen = np.pad(audiolen, (0, pad), constant_values=1)
         t0 = time.perf_counter()
         try:
-            feats = torch.from_numpy(audio).to(device)
-            featlen = torch.from_numpy(audiolen).to(device)
+            feats = host_tensor(audio).to(device)
+            featlen = host_tensor(audiolen).to(device)
             if cfg.audio_shards:
                 feats, featlen = frontend.featurize_batch(feats, featlen, cfg)
             if cfg.eval_decoder == "ctc_greedy":

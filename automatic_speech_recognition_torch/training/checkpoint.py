@@ -15,7 +15,10 @@ the state dict alone, which
 crash mid-save leaves the previous copy of that epoch whole; restore
 ignores the torn temp file and the next save replaces it.  The oldest
 epochs beyond max_to_keep are deleted after each save.  Single process:
-the port trains on one GPU.
+the port trains on one GPU.  The weights are float32 whatever
+cfg.dtype is (bf16 casts copies for the forward only), and an int8
+(ops/quant) model is never written: quantization is applied to a restored
+float checkpoint at inference.
 """
 
 from __future__ import annotations
@@ -72,6 +75,9 @@ class CheckpointManager:
         self._write(epoch, {"model": model.state_dict()})
 
     def _write(self, epoch: int, payload: Dict) -> None:
+        if any(k.endswith(".w_scale") for k in payload["model"]):
+            raise ValueError("refusing to checkpoint an int8-quantized "
+                             "model: quantization is for inference only")
         tmp = self._path(epoch) + _TMP_SUFFIX
         with open(tmp, "wb") as f:
             torch.save(payload, f)

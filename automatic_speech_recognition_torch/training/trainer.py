@@ -12,6 +12,11 @@ grad_accum_steps, and, for grad_accum_steps k > 1, optax.MultiSteps: the
 running mean of k micro-gradients is clipped and applied once, and the
 parameters stay untouched in between.
 
+Under cfg.dtype 'bfloat16' the forward and the backward run on bfloat16
+copies of the float32 parameters (models/las.compute_cast): gradients,
+Adam's moments, BN moving statistics and the step stay float32, so the
+state and its checkpoints do not change with the dtype.
+
 Over raw-audio shards the step perturbs the waveforms before the
 frontend, in JAX's order: speed (one rate per batch), volume, noise
 (ops/augmentation.py).  Those draws come from the state's own
@@ -169,11 +174,14 @@ def _apply_update(ts: TrainState, batch, cfg: Config, dec_steps: int):
                 audio = audio[:, :, 0, 0]
             audio, audiolen = augment_waveforms(ts, audio, audiolen, cfg)
             audio, audiolen = frontend.featurize_batch(audio, audiolen, cfg)
-    loss, (logits, alphas, bn_state) = las.total_loss(
-        ts.model, (audio, audiolen, y, tokenlen), cfg, dec_steps,
-        ts.generator, ts.step)
-    grads = torch.autograd.grad(loss, ts.optimizer.params,
-                                materialize_grads=True)
+    # under bf16 the forward and backward share one cast: the gradients
+    # reach the float32 masters, and a remat backward recomputes in bf16
+    with las.compute_cast(cfg, ts.model):
+        loss, (logits, alphas, bn_state) = las.total_loss(
+            ts.model, (audio, audiolen, y, tokenlen), cfg, dec_steps,
+            ts.generator, ts.step)
+        grads = torch.autograd.grad(loss, ts.optimizer.params,
+                                    materialize_grads=True)
     grad_norm = global_norm(grads)
     ts.optimizer.update(grads)
     las.assign_bn_state(ts.model, bn_state)
@@ -235,8 +243,10 @@ def make_mesh_train_step(*args, **kwargs):
 def eval_forward(model: LAS, audio: torch.Tensor, audiolen: torch.Tensor,
                  cfg: Config, dec_steps: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy inference forward.  Returns (logits, y_hat)."""
-    logits, _, _ = model(audio, audiolen, dec_steps)
+    """Greedy inference forward in cfg's compute dtype.  Returns (logits
+    float32, y_hat)."""
+    with las.compute_cast(cfg, model):
+        logits, _, _ = model(audio, audiolen, dec_steps)
     y_hat = logits.argmax(-1)
     if cfg.greedy_eos_margin >= 0:
         # cut at the first step whose EOS logit is within the margin of the

@@ -5,6 +5,7 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -36,6 +37,20 @@ def split_device(argv: Optional[Sequence[str]]) -> Tuple[str, List[str]]:
 
 def disable_tf32() -> None:
     """float32 means float32: no TF32 in CUDA matmuls or cuDNN
-    convolutions (the CLIs' setting on a GPU)."""
+    convolutions; and bfloat16 matmuls sum in float32, as the TPU's
+    matrix unit does, without cuBLAS's reduced-precision reductions (the
+    CLIs' setting on a GPU)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def host_tensor(array: np.ndarray) -> torch.Tensor:
+    """A host batch array as a CPU tensor.  The loader feeds
+    ml_dtypes.bfloat16 under --dtype bfloat16, which torch.from_numpy
+    refuses: its bits go through a uint16 view into torch.bfloat16,
+    unchanged."""
+    array = np.asarray(array)
+    if array.dtype.name == "bfloat16":
+        return torch.from_numpy(array.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(array)

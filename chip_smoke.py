@@ -80,10 +80,34 @@
    card = on the CPU; decode --apply_lm True over that LM directory; and
    serve.main on a local port: 8 concurrent WAV requests, /healthz,
    /stats, each text = Recognizer.transcribe_signals greedy.
+7. Every model configuration the JAX package accepts, at the same width
+   (speller 2 x 1024, location attention 128 / K 201 / 10 channels, mfcc
+   13 + deltas), over the training shards of phase 4:
+   - pblstm (enc_units 512, tools/pblstm_r5.sh's 1 BiRNN + 2 pyramid
+     stages, listener output 1024), loaded by Recognizer.from_checkpoint:
+     greedy batches of 8 at 2 / 8 / 16 s (ms per batch), card = CPU in
+     beam-8 rank 0 on the 2 s batch, train.main with --ctc True
+     --ctc_weight 0.2 (3 steps), the loss falling over 10 steps on one
+     batch;
+   - bf16 (--dtype bfloat16) for the published cnn and the pblstm model:
+     train.main (3 steps; every parameter, BN statistic and Adam moment
+     still float32, and the checkpoint restores them exactly), the first
+     step's loss from one state within 5 % of float32's, ms per step bf16
+     vs float32 in turns per bucket with peak memory, the device idle
+     share of one profiled step each; greedy and beam-8 joint-CTC batches
+     at 8 s, bf16 vs float32, with their rank-0 agreement;
+   - int8 (--quantize_decoder int8) on the published cnn model through
+     Recognizer.from_checkpoint at vocab 30 (cells; a quantized fusion LM
+     of the published shape, beam 8) and 5000 (cells and the output
+     layer; a synthesized vocabulary file of that size): teacher-forced
+     logits within 5e-2 relative L2 of float, the speller's bytes, greedy
+     ms per batch at 8 s float vs int8 in turns; int8 under bf16 keeps
+     w_scale float32;
+   - the kernel against its plain version on the phase's 8 s batch.
 
 Every phase raises on failure.  The last line is the result JSON; the
 line before it lists the kernels, with the launches of the serving,
-training, beam and recipe runs.  Without CUDA it exits non-zero.
+training, beam, recipe and configs runs.  Without CUDA it exits non-zero.
 """
 
 from __future__ import annotations
@@ -111,7 +135,8 @@ from automatic_speech_recognition_torch.data.pipeline import BucketedLoader
 from automatic_speech_recognition_torch.ops import frontend_host as host
 from automatic_speech_recognition_torch.utils.formant_synth import (
     PHONES, synth_phones)
-from automatic_speech_recognition_torch.utils.tokenizer import (CharEncoder,
+from automatic_speech_recognition_torch.utils.tokenizer import (CharBPE,
+                                                               CharEncoder,
                                                                EOS_ID)
 from automatic_speech_recognition_torch import create_shards as \
     create_shards_cli
@@ -129,7 +154,7 @@ from automatic_speech_recognition_torch.data.audio_io import (read_audio,
                                                               write_wav)
 from automatic_speech_recognition_torch.decoding import beam as beam_lib
 from automatic_speech_recognition_torch.models import char_rnn, las
-from automatic_speech_recognition_torch.ops import _kernels, augmentation
+from automatic_speech_recognition_torch.ops import _kernels, augmentation, quant
 from automatic_speech_recognition_torch.ops import cuda_frontend, frontend
 from automatic_speech_recognition_torch.serving import BatchingRecognizer
 from automatic_speech_recognition_torch.training import trainer
@@ -681,16 +706,16 @@ def write_train_shards(directory: str, rng: np.random.Generator) -> None:
 
 
 def run_train_cli(shard_dir: str, save_dir: str, epoch: int,
-                  extra: list) -> int:
+                  extra: list, base: list = PUBLISHED_FLAGS):
     """train.main for `epoch` epochs of 3 steps; checks the run and
-    returns its fused-kernel launches."""
-    cuda_frontend.fused_frontend.launches = 0
+    returns its fused-kernel launches and its final state."""
+    before = cuda_frontend.fused_frontend.launches
     ts, hist = train_cli.main(
-        PUBLISHED_FLAGS + ["--shard_dir", shard_dir, "--save_dir", save_dir,
-                           "--summary_dir", os.path.join(save_dir, "summary"),
-                           "--epoch", str(epoch)] + extra)
+        base + ["--shard_dir", shard_dir, "--save_dir", save_dir,
+                "--summary_dir", os.path.join(save_dir, "summary"),
+                "--epoch", str(epoch)] + extra)
     torch.cuda.synchronize()
-    launches = cuda_frontend.fused_frontend.launches
+    launches = cuda_frontend.fused_frontend.launches - before
     steps = len(hist["loss"])
     if ts.step != 3 * epoch or steps != 3:
         raise AssertionError(f"run to epoch {epoch} took {steps} steps and "
@@ -702,9 +727,9 @@ def run_train_cli(shard_dir: str, save_dir: str, epoch: int,
     if launches < steps:
         raise AssertionError(f"fused_frontend launched {launches} times in "
                              f"{steps} steps")
-    for layer in ts.model.listener.layers:
-        rnn = layer.birnn
-        if rnn.bias_hh_l0.any() or rnn.bias_hh_l0_reverse.any():
+    for rnn in ts.model.modules():
+        if isinstance(rnn, torch.nn.RNN) and (rnn.bias_hh_l0.any()
+                                              or rnn.bias_hh_l0_reverse.any()):
             raise AssertionError("bias_hh moved off zero")
     epochs = CheckpointManager(save_dir).all_epochs()
     if epochs != list(range(1, epoch + 1)):
@@ -714,7 +739,7 @@ def run_train_cli(shard_dir: str, save_dir: str, epoch: int,
           f"{[round(x, 4) for x in hist['loss']]}, grad norms "
           f"{[round(x, 4) for x in hist['grad_norm']]}, fused_frontend "
           f"launches {launches}, checkpoints {epochs}")
-    return launches
+    return launches, ts
 
 
 def device_intervals(events):
@@ -799,30 +824,30 @@ def step_timings(ts, batch, cfg: Config, card: str) -> None:
           f"{top_kernels(events)}")
 
 
-def phase_train(dev, card: str) -> int:
-    """Published-width training over raw-audio shards; returns the kernel
-    launches of the train.main runs."""
-    cfg = train_cfg()
-    rng = np.random.default_rng(2)
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        write_train_shards(d, rng)
-        print(f"training shards: {sum(TRAIN_BATCH)} synthesized records "
-              f"in {time.perf_counter() - t0:.1f} s")
-        launches = 0
-        for name, extra in (("att", []),
-                            ("ctc", ["--ctc", "True", "--ctc_weight", "0.2"])):
-            save = os.path.join(d, f"model_{name}")
-            launches += run_train_cli(d, save, 1, extra)
-            launches += run_train_cli(d, save, 2, extra)   # resumes at 4
+def train_batches(d: str, cfg: Config, dev) -> list:
+    """One batch of each training bucket from the shards in d, on the
+    device, shortest first (one pass of the loader is one batch a
+    bucket)."""
+    loader = BucketedLoader(sorted(glob.glob(os.path.join(d, "train-*.arsh"))),
+                            cfg, seed=0)
+    it = iter(loader)
+    host_batches = sorted((next(it) for _ in TRAIN_BUCKETS),
+                          key=lambda b: b[0].shape[1])
+    return [tuple(torch.from_numpy(x).to(dev) for x in b)
+            for b in host_batches]
 
-        loader = BucketedLoader(
-            sorted(glob.glob(os.path.join(d, "train-*.arsh"))), cfg, seed=0)
-        it = iter(loader)
-        host_batches = sorted((next(it) for _ in TRAIN_BUCKETS),
-                              key=lambda b: b[0].shape[1])
-    batches = [tuple(torch.from_numpy(x).to(dev) for x in b)
-               for b in host_batches]
+
+def phase_train(dev, card: str, d: str) -> int:
+    """Published-width training over the raw-audio shards in d; returns the
+    kernel launches of the train.main runs."""
+    cfg = train_cfg()
+    launches = 0
+    for name, extra in (("att", []),
+                        ("ctc", ["--ctc", "True", "--ctc_weight", "0.2"])):
+        save = os.path.join(d, f"model_{name}")
+        launches += run_train_cli(d, save, 1, extra)[0]
+        launches += run_train_cli(d, save, 2, extra)[0]   # resumes at 4
+    batches = train_batches(d, cfg, dev)
 
     ts = trainer.create_train_state(cfg, dev)
     print(f"training: LAS at published width, "
@@ -1469,6 +1494,365 @@ def phase_recipe(dev, card: str) -> int:
     return launches
 
 
+# phase_configs: every model configuration the JAX package accepts
+PBLSTM_STAGES = 2                # tools/pblstm_r5.sh: 1 BiRNN + 2 stages
+BF16_LOSS_RTOL = 0.05            # tests/test_quirk_paths.py
+# int8 vs float teacher-forced logits, relative L2 error: per-channel int8
+# rounds every weight by at most half a step, about 1 % of a matmul
+INT8_REL_LIMIT = 0.05
+SUBWORD_VOCAB = 5000             # the recipe's bpe-5k (run.sh)
+CONFIG_SECONDS = 8               # the bucket of the phase's decode checks
+DTYPES = ("float32", "bfloat16")
+
+
+def with_flags(flags: list, **values) -> list:
+    """flags with the value of each named flag replaced."""
+    out = list(flags)
+    for name, value in values.items():
+        out[out.index(f"--{name}") + 1] = str(value)
+    return out
+
+
+def pblstm_cfg() -> Config:
+    """published_cfg() with tools/pblstm_r5.sh's listener geometry at the
+    published enc_units: listener output 2 x 512."""
+    return published_cfg().replace(enc_type="pblstm",
+                                   num_enc_layers=PBLSTM_STAGES)
+
+
+def float_state(ts) -> bool:
+    """Every parameter, buffer and Adam moment of a train state is
+    float32."""
+    tensors = list(ts.model.state_dict().values())
+    for st in ts.optimizer.adam.state.values():
+        tensors += [st["exp_avg"], st["exp_avg_sq"]]
+    return all(t.dtype == torch.float32 for t in tensors)
+
+
+def profiled_step(ts, batch, cfg: Config):
+    """(device busy ms, idle share, top kernels, cuDNN RNN kernels:
+    launches and names) of one profiled train step."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("train_step"):
+            trainer.train_step(ts, batch, cfg)
+        torch.cuda.synchronize()
+    events = prof.events()
+    busy_ms, span_ms = device_busy(events, "train_step")
+    rnn = [e.name for e in device_intervals(events) if "RNN" in e.name]
+    return (busy_ms, 1 - busy_ms / span_ms, top_kernels(events, 4),
+            (len(rnn), sorted({n[:48] for n in rnn})[:3]))
+
+
+def dtype_turns(name: str, cfg: Config, batches: list, dev, card: str):
+    """bf16 against float32 from one state: the first step's loss on the
+    shortest batch (within BF16_LOSS_RTOL), then per bucket ms per step in
+    turns (float32, bf16, bf16, float32, after a warm-up step each) and
+    peak device memory over a step; the device idle share of one profiled
+    step of each on the shortest batch.  Returns the bf16 state."""
+    cfgs = {dt: cfg.replace(dtype=dt) for dt in DTYPES}
+    states = {dt: trainer.create_train_state(c, dev) for dt, c in cfgs.items()}
+    first = {dt: trainer.train_step(states[dt], batches[0], c)["loss"].item()
+             for dt, c in cfgs.items()}
+    l32, l16 = first["float32"], first["bfloat16"]
+    if l16 == l32 or abs(l16 - l32) > BF16_LOSS_RTOL * abs(l32):
+        raise AssertionError(f"{name}: first bf16 loss {l16} vs float32 "
+                             f"{l32}")
+    print(f"{name}: first step from one state, bf16 loss {l16:.5f} vs "
+          f"float32 {l32:.5f} (rel {abs(l16 - l32) / abs(l32):.2e}, limit "
+          f"{BF16_LOSS_RTOL})")
+    for batch in batches:
+        B, S = batch[0].shape[:2]
+        peak = {}
+        for dt, c in cfgs.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            trainer.train_step(states[dt], batch, c)
+            torch.cuda.synchronize()
+            peak[dt] = torch.cuda.max_memory_allocated(dev) - base
+        times = {dt: [] for dt in DTYPES}
+        for dt in DTYPES + DTYPES[::-1]:
+            times[dt].append(cuda_ms(lambda: trainer.train_step(
+                states[dt], batch, cfgs[dt]), 1))
+        ms = {dt: float(np.median(v)) for dt, v in times.items()}
+        print(f"{name} train step, {S / SR:.3f} s bucket, batch {B}, "
+              f"{batch[2].shape[1]} decoder steps [{card}]: float32 "
+              f"{ms['float32']:.2f} ms (runs "
+              f"{[round(x, 2) for x in times['float32']]}), bf16 "
+              f"{ms['bfloat16']:.2f} ms (runs "
+              f"{[round(x, 2) for x in times['bfloat16']]}); peak device "
+              f"memory over a step, beyond what was resident: float32 "
+              f"{peak['float32']} / bf16 {peak['bfloat16']} bytes")
+    for dt, c in cfgs.items():
+        busy, idle, top, (n_rnn, rnn) = profiled_step(states[dt],
+                                                      batches[0], c)
+        print(f"{name} {dt} profiled step, {batches[0][0].shape[1] / SR:.3f}"
+              f" s bucket [{card}]: device busy {busy:.2f} ms, idle share "
+              f"{idle:.4f}; cuDNN RNN kernels {n_rnn} {rnn}; top kernels "
+              f"{top}")
+    if not float_state(states["bfloat16"]):
+        raise AssertionError(f"{name}: a bf16 state tensor is not float32")
+    return states["bfloat16"]
+
+
+def configs_pblstm(dev, card: str, d: str, rng) -> list:
+    """The pblstm listener: greedy serving at 2 / 8 / 16 s, card = CPU in
+    beam-8 rank 0 on the 2 s batch, train.main with joint CTC, the loss
+    falling on one repeated batch.  Returns the CONFIG_SECONDS batch."""
+    cfg = pblstm_cfg().replace(beam_logprob=True)
+    CheckpointManager(os.path.join(d, "cfg_pblstm")).save_weights(
+        1, las.init(cfg, torch.Generator().manual_seed(0), dev))
+    rec = Recognizer.from_checkpoint(os.path.join(d, "cfg_pblstm"), cfg,
+                                     device=dev)
+    print(f"pblstm: LAS with the pyramidal listener (enc_units "
+          f"{cfg.enc_units}, {PBLSTM_STAGES} pyramid stages, listener output "
+          f"{las.enc_out_dim(cfg)}; speller {cfg.num_dec_layers} x "
+          f"{cfg.dec_units}), {las.num_params(rec.model)} parameters, loaded "
+          f"by Recognizer.from_checkpoint")
+    batches = {}
+    for b in BEAM_BUCKETS:
+        batches[b] = [speech(rng, b * rng.uniform(0.8, 1.0)) for _ in range(8)]
+        run = lambda: rec.transcribe_signals(batches[b], pad_seconds=b)
+        if not all(isinstance(t, str) for t in run()):
+            raise AssertionError("a pblstm transcript is not a str")
+        steps = max(int(cfg.convert_rate * host.num_frames(b * SR, 400, 160)),
+                    1)
+        print(f"pblstm greedy batch of 8 at the {b:2d} s bucket ({steps} "
+              f"decoder steps) [{card}]: {cuda_ms(run, 3):.2f} ms/batch")
+    short = BEAM_BUCKETS[0]
+    feats, featlen = rec._features(batches[short], pad_seconds=short)
+    on_cpu = Recognizer(copy.deepcopy(rec.model).cpu(), cfg, rec.tokenizer,
+                        "cpu")
+    ties = compare_rank0("pblstm CUDA vs CPU", rec.beam(feats, featlen,
+                                                        BEAM_SIZE),
+                         on_cpu.beam(feats.cpu(), featlen.cpu(), BEAM_SIZE))
+    print(f"pblstm CUDA vs CPU beam {BEAM_SIZE} on the {short} s batch: rank 0 "
+          f"equal on {8 - ties} of 8 utterances, {ties} near ties")
+
+    flags = with_flags(PUBLISHED_FLAGS, enc_type="pblstm",
+                       num_enc_layers=PBLSTM_STAGES)
+    run_train_cli(d, os.path.join(d, "cfg_pblstm_train"), 1,
+                  ["--ctc", "True", "--ctc_weight", "0.2"], flags)
+    tcfg = train_cfg().replace(enc_type="pblstm",
+                               num_enc_layers=PBLSTM_STAGES)
+    batch = train_batches(d, tcfg, dev)[0]
+    ts = trainer.create_train_state(tcfg, dev)
+    losses = torch.stack([trainer.train_step(ts, batch, tcfg)["loss"]
+                          for _ in range(OVERFIT_STEPS)]).tolist()
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"pblstm loss did not fall in {OVERFIT_STEPS} "
+                             f"steps on one batch: {losses}")
+    print(f"pblstm, {OVERFIT_STEPS} steps on one {TRAIN_SECONDS[0]} s batch: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return batches[CONFIG_SECONDS]
+
+
+def configs_bf16(dev, card: str, d: str, sigs8: list) -> None:
+    """bf16 compute: train.main for the published cnn and the pblstm
+    models (every state tensor float32 after it, resume exact), bf16 vs
+    float32 step times per bucket, greedy and beam-8 joint-CTC batches at
+    8 s with their rank-0 agreement with float32."""
+    print(f"bf16 matmuls with reduced-precision reductions: "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    for name, base, extra in (
+            ("cnn", PUBLISHED_FLAGS, []),
+            ("pblstm", with_flags(PUBLISHED_FLAGS, enc_type="pblstm",
+                                  num_enc_layers=PBLSTM_STAGES),
+             ["--ctc", "True", "--ctc_weight", "0.2"])):
+        save = os.path.join(d, f"cfg_bf16_{name}")
+        flags = with_flags(base, dtype="bfloat16")
+        _, ts = run_train_cli(d, save, 1, extra, flags)
+        if not float_state(ts):
+            raise AssertionError(f"{name} bf16 train.main: a state tensor "
+                                 "is not float32")
+        cfg = parse_args(flags + extra).replace(
+            vocab_size=published_cfg().vocab_size)
+        back = CheckpointManager(save).restore(
+            trainer.create_train_state(cfg, dev))
+        mine, theirs = ts.model.state_dict(), back.model.state_dict()
+        if back.step != ts.step or any(not torch.equal(v, theirs[k])
+                                       for k, v in mine.items()):
+            raise AssertionError(f"{name} bf16: resume differs")
+        print(f"{name} bf16 train.main: parameters, BN statistics and Adam "
+              f"moments float32 after {ts.step} steps; the checkpoint "
+              f"restores them exactly")
+    for name, cfg in (("cnn", train_cfg()),
+                      ("pblstm", train_cfg().replace(
+                          enc_type="pblstm", num_enc_layers=PBLSTM_STAGES,
+                          ctc=True, ctc_weight=0.2))):
+        dtype_turns(name, cfg, train_batches(d, cfg, dev), dev, card)
+
+    cfg = published_cfg().replace(ctc=True, beam_logprob=True,
+                                  ctc_beam_weight=0.5)
+    model = las.init(cfg, torch.Generator().manual_seed(0), dev)
+    with torch.no_grad():
+        model.speller.out.bias[EOS_ID] -= EOS_SHIFT
+        model.speller.ctc_head.bias[EOS_ID] -= EOS_SHIFT
+    recs = {dt: Recognizer(model, cfg.replace(dtype=dt), CharEncoder(), dev)
+            for dt in DTYPES}
+    feats, featlen = recs["float32"]._features(sigs8,
+                                               pad_seconds=CONFIG_SECONDS)
+    out = {}
+    for dt, rec in recs.items():
+        greedy = lambda: rec.greedy(feats, featlen)
+        beam = lambda: rec.beam(feats, featlen, BEAM_SIZE)
+        out[dt] = (greedy()[1], beam())
+        out[dt] += (cuda_ms(greedy, 3), cuda_ms(beam, 2))
+    (y32, b32, g32_ms, b32_ms), (y16, b16, g16_ms, b16_ms) = (
+        out["float32"], out["bfloat16"])
+    stop = lambda y: y[:int((y == EOS_ID).nonzero()[0]) + 1] \
+        if (y == EOS_ID).any() else y
+    greedy_eq = sum(torch.equal(stop(a), stop(b)) for a, b in zip(y32, y16))
+    beam_eq = sum(torch.equal(b32.tokens[i, 0, :b32.lengths[i, 0]],
+                              b16.tokens[i, 0, :b16.lengths[i, 0]])
+                  for i in range(8))
+    if not bool(torch.isfinite(b16.scores[:, 0]).all()):
+        raise AssertionError("bf16 beam: a rank-0 score is not finite")
+    print(f"bf16 vs float32 decoding of 8 utterances at the "
+          f"{CONFIG_SECONDS} s bucket "
+          f"[{card}]: greedy {g16_ms:.2f} vs {g32_ms:.2f} ms/batch, same "
+          f"tokens on {greedy_eq} of 8; beam {BEAM_SIZE} joint CTC "
+          f"{b16_ms:.2f} vs {b32_ms:.2f} ms/batch ({b16.steps} / {b32.steps} "
+          f"steps), rank 0 equal on {beam_eq} of 8")
+
+
+def write_bpe_vocab(directory: str, size: int) -> None:
+    """A subword vocabulary of `size` tokens in the bpe-*.json / .txt
+    format: specials, letters, then letter triples (decoding random
+    weights needs only the vocabulary's size)."""
+    letters = [chr(c) for c in range(ord("A"), ord("Z") + 1)]
+    tokens = ["<PAD>", "<SOS>", "<EOS>", "<unk>"] + letters
+    for a in letters:
+        for b in letters:
+            for c in letters:
+                tokens.append(a + b + c)
+    CharBPE({t: i for i, t in enumerate(tokens[:size])}, []).save(directory)
+
+
+def configs_int8(dev, card: str, d: str, sigs8: list) -> None:
+    """int8 decoder weights through Recognizer.from_checkpoint at vocab 30
+    (cells quantized; a quantized fusion LM beside them) and 5000 (cells
+    and `out`): teacher-forced logits against float, the speller's bytes,
+    greedy ms float vs int8 in turns; int8 under bf16."""
+    lm_cfg = char_rnn.LMConfig(**LM_SHAPE)
+    lm_dir = os.path.join(d, "cfg_lm")
+    char_rnn.save_lm_dir(lm_dir, char_rnn.init(
+        lm_cfg, torch.Generator().manual_seed(1), dev), lm_cfg)
+    write_bpe_vocab(os.path.join(d, "bpe5k"), SUBWORD_VOCAB)
+    for vocab, cfg in ((30, published_cfg()),
+                       (SUBWORD_VOCAB, published_cfg().replace(
+                           unit="subword", subword_dir=os.path.join(d, "bpe5k"),
+                           vocab_size=SUBWORD_VOCAB))):
+        cfg = cfg.replace(lm_weight=0.5, beam_logprob=True)
+        ckpt = os.path.join(d, f"cfg_int8_{vocab}")
+        model = las.init(cfg, torch.Generator().manual_seed(0), dev)
+        with torch.no_grad():      # each search runs its step budget
+            model.speller.out.bias[EOS_ID] -= EOS_SHIFT
+        CheckpointManager(ckpt).save_weights(1, model)
+        lm = lm_dir if vocab < 512 else ""
+        rec_f = Recognizer.from_checkpoint(ckpt, cfg, device=dev)
+        rec_q = Recognizer.from_checkpoint(
+            ckpt, cfg.replace(quantize_decoder="int8"), lm_dir=lm, device=dev)
+        sp = rec_q.model.speller
+        if not (all(isinstance(c, quant.QuantLinear) for c in sp.cells)
+                and isinstance(sp.out, quant.QuantLinear) == (vocab >= 512)
+                and isinstance(sp.attention.w_h, torch.nn.Linear)):
+            raise AssertionError(f"vocab {vocab}: wrong matrices quantized")
+        if lm and not isinstance(rec_q.lm.cells[0], quant.QuantLinear):
+            raise AssertionError("the fusion LM's cells are not int8")
+        feats, featlen = rec_f._features(sigs8, pad_seconds=CONFIG_SECONDS)
+        steps = max(int(cfg.convert_rate * feats.shape[1]), 1)
+        y = torch.randint(3, vocab, (8, steps), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(0))
+        with torch.no_grad():
+            lf = las.las_forward(rec_f.model, feats, featlen, cfg, steps,
+                                 teacher=y)[0]
+            lq = las.las_forward(rec_q.model, feats, featlen, cfg, steps,
+                                 teacher=y)[0]
+        # the lowered EOS logit would dominate the norm: leave it out
+        keep = torch.arange(lf.shape[-1], device=dev) != EOS_ID
+        rel = float((lq - lf)[..., keep].norm() / lf[..., keep].norm())
+        if not rel <= INT8_REL_LIMIT:
+            raise AssertionError(f"vocab {vocab}: int8 teacher-forced logits "
+                                 f"rel err {rel} > {INT8_REL_LIMIT}")
+        times = {"float32": [], "int8": []}
+        recs = {"float32": rec_f, "int8": rec_q}
+        for k in ("float32", "int8", "int8", "float32"):
+            times[k].append(cuda_ms(lambda: recs[k].greedy(feats, featlen),
+                                    2))
+        ms = {k: float(np.median(v)) for k, v in times.items()}
+        print(f"int8, vocab {vocab} [{card}]: speller "
+              f"{quant.size_bytes(rec_f.model.speller)} bytes float32 vs "
+              f"{quant.size_bytes(sp)} int8; teacher-forced logits over "
+              f"{steps} steps rel L2 err {rel:.3e} (limit {INT8_REL_LIMIT}); "
+              f"greedy batch of 8 at {CONFIG_SECONDS} s float32 "
+              f"{ms['float32']:.2f} ms "
+              f"(runs {[round(x, 2) for x in times['float32']]}) vs int8 "
+              f"{ms['int8']:.2f} ms (runs "
+              f"{[round(x, 2) for x in times['int8']]})")
+        if lm:
+            res = rec_q.beam(feats, featlen, BEAM_SIZE)
+            if not bool(torch.isfinite(res.scores[:, 0]).all()):
+                raise AssertionError("int8 beam with the int8 LM: rank 0 "
+                                     "not finite")
+            ms = cuda_ms(lambda: rec_q.beam(feats, featlen, BEAM_SIZE), 1)
+            print(f"int8 speller + int8 fusion LM {LM_SHAPE}, beam "
+                  f"{BEAM_SIZE} at {CONFIG_SECONDS} s [{card}]: {ms:.2f} "
+                  f"ms/batch, {res.steps} decoder steps; LM "
+                  f"{quant.size_bytes(char_rnn.load_lm_dir(lm)[0])} bytes "
+                  f"float32 vs {quant.size_bytes(rec_q.lm)} int8")
+            c16 = rec_q.cfg.replace(dtype="bfloat16")
+            with las.compute_cast(c16, rec_q.model):
+                cell = rec_q.model.speller.cells[0]
+                kept = (cell.w_scale.dtype == torch.float32
+                        and cell.q.dtype == torch.int8
+                        and cell.bias.dtype == torch.bfloat16)
+            if not kept:
+                raise AssertionError("int8 under bf16: w_scale or q cast")
+            l16, _ = Recognizer(rec_q.model, c16, rec_q.tokenizer,
+                                dev).greedy(feats, featlen)
+            lq8, _ = rec_q.greedy(feats, featlen)
+            if not bool(torch.isfinite(l16).all()):
+                raise AssertionError("int8 under bf16: non-finite logits")
+            print(f"int8 under bf16: w_scale float32, q int8, bias bf16 in "
+                  f"the cast; greedy first-step logits vs int8 float32 rel "
+                  f"err {float((l16[:, 0] - lq8[:, 0]).norm() / lq8[:, 0].norm()):.3e}")
+
+
+def phase_configs(dev, card: str, d: str) -> int:
+    """The pblstm listener, bf16 compute and int8 decoder weights at
+    published width; returns the kernel launches of the phase."""
+    rng = np.random.default_rng(6)
+    cuda_frontend.fused_frontend.launches = 0
+    sigs8 = configs_pblstm(dev, card, d, rng)
+    configs_bf16(dev, card, d, sigs8)
+    configs_int8(dev, card, d, sigs8)
+    torch.cuda.synchronize()
+    launches = cuda_frontend.fused_frontend.launches
+    if launches == 0:
+        raise AssertionError("the configs phase did not launch the kernel")
+    # one batch of the phase: the kernel against its plain version
+    audio = torch.zeros((len(sigs8), CONFIG_SECONDS * SR))
+    for i, sig in enumerate(sigs8):
+        audio[i, :len(sig)] = torch.from_numpy(sig)
+    audio = audio.to(dev)
+    lens = torch.tensor([len(sig) for sig in sigs8], device=dev)
+    cfg = pblstm_cfg()
+    fk, lk = frontend.extract_features_cfg(audio, lens, cfg)
+    fp, lp = frontend.extract_features_cfg(audio, lens,
+                                           cfg.replace(use_pallas=False))
+    torch.cuda.synchronize()
+    if not torch.equal(lk, lp):
+        raise AssertionError("configs batch: featlen differs")
+    err = check_close("configs batch features", fk, fp, RTOL, ATOL)
+    print(f"configs phase [{card}]: fused_frontend launches {launches}; the "
+          f"{CONFIG_SECONDS} s batch's features kernel vs plain max abs err "
+          f"{err:.3e}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -1477,6 +1861,7 @@ def main() -> int:
     dev = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1493,9 +1878,15 @@ def main() -> int:
 
     k = phase_kernel(dev, card)
     launches = phase_serving(dev, card)
-    launches += phase_train(dev, card)
-    launches += phase_beam(dev, card)
-    launches += phase_recipe(dev, card)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        write_train_shards(d, np.random.default_rng(2))
+        print(f"training shards: {sum(TRAIN_BATCH)} synthesized records "
+              f"in {time.perf_counter() - t0:.1f} s")
+        launches += phase_train(dev, card, d)
+        launches += phase_beam(dev, card)
+        launches += phase_recipe(dev, card)
+        launches += phase_configs(dev, card, d)
 
     print(json.dumps({"kernels": [{
         "name": "fused_frontend", "route": "cuda", "source": KERNEL_SOURCE,

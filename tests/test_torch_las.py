@@ -177,9 +177,3 @@ def test_init_follows_the_jax_distributions():
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
     convert.from_jax_params(to_np(params), to_np(state), cfg, CPU)
 
-
-def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="pblstm"):
-        tlas.LAS(small_cfg(enc_type="pblstm"))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tlas.LAS(small_cfg(dtype="bfloat16"))

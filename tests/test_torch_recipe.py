@@ -233,7 +233,6 @@ def test_test_takes_the_saved_model_flags(model):
 
 
 @pytest.mark.parametrize("flag,value,match", [
-    ("--quantize_decoder", "int8", "item 6"),
     ("--num_partitions", "2", "item 8")])
 def test_test_refuses_unported_flags(tmp_path, flag, value, match):
     with pytest.raises(NotImplementedError, match=match):
