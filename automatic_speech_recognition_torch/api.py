@@ -11,7 +11,15 @@ GPU, the plain path on the CPU) -> greedy LAS, or batched beam search
 -> detokenization of rank 0.  cfg.dtype 'bfloat16' decodes in bf16
 (models/las.compute_cast); cfg.quantize_decoder 'int8' quantizes the
 restored float checkpoint's speller and the fusion LM's cells
-(ops/quant.py).  Not ported: the multi-device mesh (ROADMAP item 8).
+(ops/quant.py).
+
+A comma list of devices ('cuda:0,cuda:1') is a data axis, as the JAX
+Recognizer's mesh over jax.devices(): a replica of the model and the LM
+on each (parallel/sharding.py); a request batch is padded to a multiple
+of the devices with 1-sample silence, featurized on the first, its rows
+decoded on the replicas at once and gathered in order.  'cuda' is one
+GPU, as 'cuda:N' is: replicas on threads of one process measured slower
+than one device (PERF.md, Findings).
 """
 
 from __future__ import annotations
@@ -30,24 +38,31 @@ from .decoding import beam as beam_lib
 from .models import char_rnn
 from .models.las import LAS
 from .ops import frontend, quant
+from .parallel import sharding
+from .parallel.mesh import devices_for, make_mesh
 from .training import trainer
 from .training.checkpoint import CheckpointManager
-from .utils.device import resolve_device
 
 
 class Recognizer:
-    """LAS model + config + tokenizer (+ optional fusion LM) on one
-    device."""
+    """LAS model + config + tokenizer (+ optional fusion LM) over the
+    devices `device` names (parallel/mesh.devices_for): `model` and `lm`
+    on the first, a replica of each on every other."""
 
     def __init__(self, model: LAS, cfg: Config, tokenizer, device,
                  lm: Optional[char_rnn.CharRNN] = None,
                  lm_cfg: Optional[char_rnn.LMConfig] = None):
-        self.device = resolve_device(str(device))
+        self.mesh = make_mesh(devices=devices_for(str(device)),
+                              data_axis=cfg.data_axis,
+                              model_axis=cfg.model_axis)
+        self.device = self.mesh.devices[0]
         self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.lm = lm.to(self.device).eval() if lm is not None else None
         self.lm_cfg = lm_cfg
+        self.replicas = sharding.place_eval_params(self.mesh, self.model,
+                                                   self.lm)
 
     @classmethod
     def from_checkpoint(cls, save_dir: str, cfg: Config, epoch: int = -1,
@@ -88,17 +103,26 @@ class Recognizer:
 
     def greedy(self, feats: torch.Tensor, featlen: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(logits, y_hat) for a feature batch, max_steps from its length."""
-        return trainer.eval_forward(self.model, feats, featlen, self.cfg,
-                                    self.max_steps(feats))
+        """(logits, y_hat) for a feature batch whose rows divide by the
+        devices, max_steps from its length."""
+        steps = self.max_steps(feats)
+        return sharding.run_replicas(
+            self.mesh, self.replicas,
+            lambda r, f, fl: trainer.eval_forward(r.model, f, fl, self.cfg,
+                                                  steps),
+            (feats, featlen))
 
     def beam(self, feats: torch.Tensor, featlen: torch.Tensor,
              beam_size: int) -> beam_lib.BeamResult:
-        """Beam search over a feature batch with cfg's beam flags and the
-        recognizer's LM."""
-        return beam_lib.beam_search(
-            self.model, feats, featlen, self.cfg, self.max_steps(feats),
-            beam_size, self.cfg.beam_logprob, self.lm, self.lm_cfg)
+        """Beam search over a feature batch (rows dividing by the devices)
+        with cfg's beam flags and the recognizer's LM."""
+        steps = self.max_steps(feats)
+        return sharding.run_replicas(
+            self.mesh, self.replicas,
+            lambda r, f, fl: beam_lib.beam_search(
+                r.model, f, fl, self.cfg, steps, beam_size,
+                self.cfg.beam_logprob, r.lm, self.lm_cfg),
+            (feats, featlen))
 
     def max_steps(self, feats: torch.Tensor) -> int:
         return max(int(self.cfg.convert_rate * feats.shape[1]), 1)
@@ -108,14 +132,19 @@ class Recognizer:
                            pad_seconds: int = 0) -> List[str]:
         """signals: float waveforms at cfg.sample_rate.  beam_size 0/1:
         greedy; > 1: beam search, rank 0."""
+        n = len(signals)
+        # rows of 1-sample silence make the batch divide by the devices;
+        # their hypotheses are dropped below
+        signals = list(signals) + [np.zeros(1, np.float32)] * (
+            sharding.pad_batch_to(n, len(self.mesh.devices)) - n)
         feats, featlen = self._features(signals, pad_seconds)
         if beam_size > 1:
             res = self.beam(feats, featlen, beam_size)
             toks, tlen = res.tokens.cpu().numpy(), res.lengths.cpu().numpy()
-            ids = [toks[i, 0, :tlen[i, 0]] for i in range(len(signals))]
+            ids = [toks[i, 0, :tlen[i, 0]] for i in range(n)]
         else:
             _, y_hat = self.greedy(feats, featlen)
-            ids = list(y_hat.cpu().numpy())
+            ids = list(y_hat.cpu().numpy()[:n])
         return [convert_idx_to_string(x, self.tokenizer.id_to_token,
                                       self.cfg.unit) for x in ids]
 

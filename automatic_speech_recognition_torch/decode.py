@@ -17,9 +17,13 @@ frames, by decoding/beam.beam_search; rank 0 is the hypothesis.  Writes
 decode_pred.txt and decode_gt.txt to --log_dir and prints `WER: x.xxxx`
 (and `CER: x.xxxx` with --report_cer).  --dtype bfloat16 decodes in
 bf16, --quantize_decoder int8 with int8 speller (and fusion-LM cell)
-weights.  Refused: --num_partitions > 1 (multi-GPU is ROADMAP item 8).
-`batch_iter` is decode.py's, written again because that module imports
-JAX.
+weights.  A comma list of devices (--device cuda:0,cuda:1) decodes over
+a data axis: a replica of the model and the fusion LM on each, every
+batch padded to a multiple of the devices with 1-frame rows and its rows
+split over them (parallel/sharding.py); --device cuda is one GPU.  Under torchrun every process decodes the split on its own GPU
+and only the primary writes the files.  Refused: --num_partitions > 1
+(tensor parallelism, ROADMAP item 12).  `batch_iter` is decode.py's,
+written again because that module imports JAX.
 
 Tiny CPU run:
   python -m automatic_speech_recognition_torch.decode --device cpu \\
@@ -51,10 +55,11 @@ from .decoding import beam as beam_lib
 from .models import char_rnn
 from .models.las import LAS
 from .ops import frontend
+from .parallel import distributed, sharding
+from .parallel.mesh import TENSOR_PARALLEL, devices_for, make_mesh
 from .training.checkpoint import CheckpointManager
 from .ops.quant import maybe_quantize, quantize_lm
-from .utils.device import (disable_tf32, host_tensor, resolve_device,
-                           split_device)
+from .utils.device import disable_tf32, split_device
 
 log = logging.getLogger("decode")
 
@@ -105,9 +110,7 @@ def check_flags(cfg: Config) -> None:
     """Refuse what the port cannot decode; the joint-CTC guards of
     decode.py."""
     if cfg.num_partitions > 1:
-        raise NotImplementedError(
-            "multi-GPU decoding (--num_partitions > 1) is not ported yet "
-            "(ROADMAP item 8)")
+        raise NotImplementedError(TENSOR_PARALLEL)
     if cfg.ctc_beam_weight > 0:
         if not cfg.ctc:
             raise ValueError(
@@ -138,7 +141,10 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
             log.info("model flag from training snapshot: %s", line)
     log.info("parameters:\n%s", cfg.to_json())
     check_flags(cfg)
-    device = resolve_device(device_name)
+    distributed.maybe_initialize(device_name)
+    mesh = make_mesh(devices=devices_for(device_name),
+                     data_axis=cfg.data_axis, model_axis=cfg.model_axis)
+    device, dp = mesh.devices[0], len(mesh.devices)
     if device.type == "cuda":
         disable_tf32()
     watchdog = (StallWatchdog(cfg.stall_timeout_s, what="decode progress")
@@ -160,8 +166,9 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         feats = frontend.extract_features_list(
             [np.asarray(f, np.float32).reshape(-1) for f in feats], cfg,
             device)
-    log.info("decoding %d utterances (beam %d, lm %s) on %s", len(feats),
-             cfg.beam_size, cfg.apply_lm, device)
+    log.info("decoding %d utterances (beam %d, lm %s), mesh %s over %s",
+             len(feats), cfg.beam_size, cfg.apply_lm, mesh.shape,
+             ", ".join(map(str, mesh.devices)))
 
     for line in check_model_config(cfg, cfg.save_dir):
         log.warning("model flag differs from the training snapshot "
@@ -173,16 +180,23 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     model = maybe_quantize(model.to(device).eval(), cfg)
     if lm is not None and cfg.quantize_decoder != "none":
         lm = quantize_lm(lm, lm_cfg)
+    replicas = sharding.place_eval_params(mesh, model, lm)
 
     error, N = 0, 0
     hyps, refs = [], []
     for audio, lens, ys in batch_iter(feats, tokens, cfg.decode_batch,
                                       cfg.decode_pad_quantum):
         max_steps = max(int(cfg.convert_rate * audio.shape[1]), 1)
-        res = beam_lib.beam_search(
-            model, host_tensor(audio).to(device),
-            host_tensor(lens).to(device), cfg, max_steps,
-            cfg.beam_size, cfg.beam_logprob, lm, lm_cfg)
+        pad = sharding.pad_batch_to(len(ys), dp) - len(ys)
+        if pad:   # rows of one frame, decoded and dropped
+            audio = np.pad(audio, ((0, pad),) + ((0, 0),) * (audio.ndim - 1))
+            lens = np.pad(lens, (0, pad), constant_values=1)
+        res = sharding.run_replicas(
+            mesh, replicas,
+            lambda r, f, fl: beam_lib.beam_search(
+                r.model, f, fl, cfg, max_steps, cfg.beam_size,
+                cfg.beam_logprob, r.lm, lm_cfg),
+            (audio, lens))
         toks, tlen = res.tokens.cpu().numpy(), res.lengths.cpu().numpy()
         for b, y in enumerate(ys):
             hyp = convert_idx_to_string(toks[b, 0, :tlen[b, 0]],
@@ -203,11 +217,12 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     if watchdog is not None:
         watchdog.stop()
 
-    os.makedirs(cfg.log_dir, exist_ok=True)
-    with open(os.path.join(cfg.log_dir, "decode_pred.txt"), "w") as f:
-        f.write("\n".join(hyps))
-    with open(os.path.join(cfg.log_dir, "decode_gt.txt"), "w") as f:
-        f.write("\n".join(refs))
+    if distributed.is_primary():
+        os.makedirs(cfg.log_dir, exist_ok=True)
+        with open(os.path.join(cfg.log_dir, "decode_pred.txt"), "w") as f:
+            f.write("\n".join(hyps))
+        with open(os.path.join(cfg.log_dir, "decode_gt.txt"), "w") as f:
+            f.write("\n".join(refs))
     wer = error / max(N, 1)
     log.info("%s WER: %.4f", cfg.split, wer)
     if cfg.report_cer:
@@ -219,4 +234,7 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.destroy()

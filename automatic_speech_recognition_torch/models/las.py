@@ -39,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
+import weakref
 from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
@@ -52,6 +53,7 @@ from automatic_speech_recognition_torch.utils.tokenizer import PAD_ID, SOS_ID
 from ..ops import attention as att
 from ..ops import augmentation
 from ..ops import layers as L
+from ..parallel import distributed
 
 # new BN moving statistics by module name under the model ("listener....")
 BNState = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
@@ -77,9 +79,17 @@ def compute_dtype(cfg: Config) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-# compute_cast swaps the tensors of a shared model: one cast at a time in
-# the process (serving's batcher and its callers may share a Recognizer)
-_CAST_LOCK = threading.RLock()
+# compute_cast swaps the tensors of a shared model: one cast of a model at
+# a time (serving's batcher and its callers may share a Recognizer), while
+# the replicas of a data axis cast at once
+_CAST_LOCKS: "weakref.WeakKeyDictionary[nn.Module, threading.RLock]" = \
+    weakref.WeakKeyDictionary()
+_CAST_LOCKS_GUARD = threading.Lock()
+
+
+def _cast_lock(model: nn.Module) -> threading.RLock:
+    with _CAST_LOCKS_GUARD:
+        return _CAST_LOCKS.setdefault(model, threading.RLock())
 
 
 @contextlib.contextmanager
@@ -97,7 +107,7 @@ def compute_cast(cfg: Config, model: nn.Module) -> Iterator[None]:
     if compute_dtype(cfg) == torch.float32:
         yield
         return
-    with _CAST_LOCK:
+    with _cast_lock(model):
         if getattr(model, "_cast_active", False):
             yield
             return
@@ -128,13 +138,15 @@ class ListenerLayer(nn.Module):
         self.bn_extra = L.BatchNorm(units) if apply_bn else None
         self.bn_main = L.BatchNorm(units)
 
-    def forward(self, x: torch.Tensor, is_training: bool = False
+    def forward(self, x: torch.Tensor, is_training: bool = False,
+                group: distributed.Group = None
                 ) -> Tuple[torch.Tensor, BNState]:
         x = self.proj(L.birnn_apply(self.birnn, x))
         state: BNState = {}
         if self.bn_extra is not None:
-            x, state["bn_extra"] = self.bn_extra.normalize(x, is_training)
-        x, state["bn_main"] = self.bn_main.normalize(x, is_training)
+            x, state["bn_extra"] = self.bn_extra.normalize(x, is_training,
+                                                           group)
+        x, state["bn_main"] = self.bn_main.normalize(x, is_training, group)
         return torch.relu(x), state
 
 
@@ -162,24 +174,26 @@ class Listener(nn.Module):
 
     def encode(self, audio: torch.Tensor, audiolen: torch.Tensor,
                is_training: bool = False, dropout_rate: float = 0.0,
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None,
+               group: distributed.Group = None
                ) -> Tuple[torch.Tensor, torch.Tensor, BNState]:
         """(enc_out, enc_len, new BN statistics by name under the
-        listener); dropout runs before each BiRNN layer in training."""
+        listener); dropout runs before each BiRNN layer in training, and
+        `group` makes the training BN statistics the global batch's."""
         x = audio                                   # NHWC, 3 channels
         state: BNState = {}
         for i, (conv, bn) in enumerate(((self.conv0, self.bn_conv0),
                                         (self.conv1, self.bn_conv1))):
             x = L.conv2d_apply(x, conv.weight, conv.bias, stride=2)
             if bn is not None:
-                x, state[f"bn_conv{i}"] = bn.normalize(x, is_training)
+                x, state[f"bn_conv{i}"] = bn.normalize(x, is_training, group)
             x = torch.relu(x)
             audiolen = ceil_half(audiolen)
         B, T, Dr, C = x.shape
         x = x.reshape(B, T, Dr * C)
         for i, layer in enumerate(self.layers):
             x = L.dropout(x, dropout_rate, is_training, generator)
-            x, layer_state = layer(x, is_training)
+            x, layer_state = layer(x, is_training, group)
             state.update({f"layers.{i}.{k}": v
                           for k, v in layer_state.items()})
         return x, audiolen, state
@@ -212,9 +226,11 @@ class PBLSTMListener(nn.Module):
 
     def encode(self, audio: torch.Tensor, audiolen: torch.Tensor,
                is_training: bool = False, dropout_rate: float = 0.0,
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None,
+               group: distributed.Group = None
                ) -> Tuple[torch.Tensor, torch.Tensor, BNState]:
-        """(enc_out, enc_len, {}): the pyramid has no BN state."""
+        """(enc_out, enc_len, {}): the pyramid has no BN state, so it
+        needs no group."""
         B, T, D, C = audio.shape
         x = L.dropout(audio.reshape(B, T, D * C), dropout_rate, is_training,
                       generator)
@@ -304,7 +320,8 @@ def scheduled_sampling_rate(cfg: Config, step) -> torch.Tensor:
 def speller_train(sp: Speller, cfg: Config, enc_out, enc_len,
                   teacher: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
-                  tf_rate: Union[float, torch.Tensor] = 1.0
+                  tf_rate: Union[float, torch.Tensor] = 1.0,
+                  rank_generator: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training decoder over teacher.shape[1] steps.  Returns logits
     (B, steps, V) and alphas (B, steps, T_enc).
@@ -312,7 +329,11 @@ def speller_train(sp: Speller, cfg: Config, enc_out, enc_len,
     A float tf_rate >= 1.0 is pure teacher forcing; any other value (a
     tensor from scheduled_sampling_rate) draws the batch-level coin every
     step.  With cfg.remat each decoder step is recomputed in the backward
-    pass instead of keeping its activations."""
+    pass instead of keeping its activations.  Draws for the whole batch
+    (the coin, the variational noise on the table) come from `generator`;
+    draws per row (the sampled tokens, dropout) from `rank_generator`,
+    which defaults to `generator`: under data parallelism the first is
+    the same on every rank and the second differs."""
     B, T_enc, _ = enc_out.shape
     dev = enc_out.device
     sampling = not (isinstance(tf_rate, float) and tf_rate >= 1.0)
@@ -325,6 +346,7 @@ def speller_train(sp: Speller, cfg: Config, enc_out, enc_len,
             "scheduled sampling, dropout, or variational noise")
     if sampling:
         tf_rate = torch.as_tensor(tf_rate, dtype=torch.float32, device=dev)
+    per_row = rank_generator if rank_generator is not None else generator
     vn = generator if cfg.add_vn else None
     table = sp.embedding.weight
     emb = L.embedding_lookup(
@@ -346,10 +368,10 @@ def speller_train(sp: Speller, cfg: Config, enc_out, enc_len,
             coin = torch.rand((), generator=generator, device=dev)
             sampled = torch.multinomial(torch.softmax(lg.detach().float(),
                                                       -1), 1,
-                                        generator=generator)[:, 0]
+                                        generator=per_row)[:, 0]
             ids = torch.where(tf_rate > coin, ids, sampled)
         emb = L.dropout(L.embedding_lookup(table, ids, vn),
-                        cfg.dropout_rate, True, generator)
+                        cfg.dropout_rate, True, per_row)
         logits.append(lg)
         alphas.append(align)
     return torch.stack(logits, 1), torch.stack(alphas, 1)
@@ -384,22 +406,28 @@ def las_forward(model: LAS, audio, audiolen, cfg: Config, dec_steps: int,
                 teacher: Optional[torch.Tensor] = None,
                 is_training: bool = True,
                 generator: Optional[torch.Generator] = None,
-                tf_rate: Union[float, torch.Tensor] = 1.0):
+                tf_rate: Union[float, torch.Tensor] = 1.0,
+                rank_generator: Optional[torch.Generator] = None,
+                group: distributed.Group = None):
     """Full encoder-decoder forward in cfg's compute dtype.  Returns
     (logits, ctc_logits, alphas, enc_len, new BN state), the first three in
     float32; ctc_logits is None without cfg.ctc.  Training runs the
-    teacher's first dec_steps tokens; inference is greedy."""
+    teacher's first dec_steps tokens; inference is greedy.  Under data
+    parallelism `generator` is the ranks' shared stream, `rank_generator`
+    this rank's own (speller_train), and `group` the ranks whose batch BN
+    normalizes over."""
+    per_row = rank_generator if rank_generator is not None else generator
     with compute_cast(cfg, model):
         enc_out, enc_len, lstate = model.listener.encode(
             audio.to(compute_dtype(cfg)), audiolen, is_training,
-            cfg.dropout_rate, generator)
+            cfg.dropout_rate, per_row, group)
         sp = model.speller
         ctc_logits = (sp.ctc_head(enc_out).float()
                       if sp.ctc_head is not None else None)
         if is_training:
             logits, alphas = speller_train(sp, cfg, enc_out, enc_len,
                                            teacher[:, :dec_steps], generator,
-                                           tf_rate)
+                                           tf_rate, per_row)
         else:
             logits, alphas = speller_greedy(sp, enc_out, enc_len, dec_steps)
     state = {f"listener.{k}": v for k, v in lstate.items()}
@@ -421,24 +449,31 @@ def label_smoothing(one_hot: torch.Tensor, epsilon: float = 0.01
     return (1.0 - epsilon) * one_hot + epsilon / one_hot.shape[-1]
 
 
-def attention_loss(logits: torch.Tensor, y: torch.Tensor,
-                   cfg: Config) -> torch.Tensor:
+def attention_loss(logits: torch.Tensor, y: torch.Tensor, cfg: Config,
+                   group: distributed.Group = None) -> torch.Tensor:
     """Label-smoothed CE averaged over non-PAD positions.  A written-out
     masked sum: cross_entropy(ignore_index=PAD) is NaN on an all-PAD
-    batch, this is 0."""
+    batch, this is 0.  With a process group the positions are the global
+    batch's: this rank's sum over the group's count, so the ranks' losses
+    add up to the global batch's (the average of per-rank means would
+    weigh a rank's tokens by its token count)."""
     y = y[:, :logits.shape[1]].long()
     target = F.one_hot(y, cfg.vocab_size).to(logits.dtype)
     if cfg.label_smoothing:
         target = label_smoothing(target)
     ce = -(target * torch.log_softmax(logits, -1)).sum(-1)
     mask = (y != PAD_ID).to(logits.dtype)
-    return (ce * mask).sum() / (mask.sum() + 1e-9)
+    count = mask.sum()
+    if group is not None:
+        count = distributed.reduced(count, group)
+    return (ce * mask).sum() / (count + 1e-9)
 
 
 def ctc_loss(ctc_logits: torch.Tensor, y: torch.Tensor, enc_len: torch.Tensor,
-             cfg: Config) -> torch.Tensor:
+             cfg: Config, group: distributed.Group = None) -> torch.Tensor:
     """Mean per-utterance CTC NLL over encoder frames, blank = vocab_size,
-    labels right-padded with PAD.
+    labels right-padded with PAD.  With a process group the mean is over
+    the global batch's rows: this rank's sum over the group's row count.
 
     optax.ctc_loss, which the JAX package uses, floors log(0) at
     LOG_EPSILON, so an utterance whose labels need more frames than it has
@@ -447,12 +482,19 @@ def ctc_loss(ctc_logits: torch.Tensor, y: torch.Tensor, enc_len: torch.Tensor,
     -LOG_EPSILON here, with no gradient; they go through F.ctc_loss with
     an empty target only so that its backward stays finite.
     cfg.ctc_compat_drop_last drops the batch's last non-PAD label in
-    row-major order (the reference's sparse-index off-by-one)."""
+    row-major order (the reference's sparse-index off-by-one): with a
+    group, the global batch's, which lies on the last rank holding one."""
     T = ctc_logits.shape[1]
     if cfg.ctc_compat_drop_last:
         flat = y.reshape(-1)
         pos = torch.arange(flat.numel(), device=y.device)
         last = torch.where(flat != PAD_ID, pos, -1).max()  # -1: all PAD
+        if group is not None:
+            rank = torch.distributed.get_rank(group)
+            holder = distributed.reduced(
+                torch.where(last >= 0, rank, -1), group,
+                torch.distributed.ReduceOp.MAX)
+            last = torch.where(holder == rank, last, -1)
         y = torch.where(pos == last, PAD_ID, flat).reshape(y.shape)
     y = y.long()
     nonpad = y != PAD_ID
@@ -463,25 +505,38 @@ def ctc_loss(ctc_logits: torch.Tensor, y: torch.Tensor, enc_len: torch.Tensor,
     nll = F.ctc_loss(torch.log_softmax(ctc_logits, -1).transpose(0, 1), y,
                      in_len, torch.where(feasible, label_len, 0),
                      blank=cfg.vocab_size, reduction="none")
-    return torch.where(feasible, nll, -LOG_EPSILON).mean()
+    nll = torch.where(feasible, nll, -LOG_EPSILON)
+    if group is None:
+        return nll.mean()
+    rows = distributed.reduced(
+        torch.tensor(float(nll.shape[0]), device=nll.device), group)
+    return nll.sum() / rows
 
 
 def total_loss(model: LAS, batch, cfg: Config, dec_steps: int,
-               generator: Optional[torch.Generator], step: int):
-    """Training loss.  Returns (loss, (logits, alphas, new BN state))."""
+               generator: Optional[torch.Generator], step: int,
+               rank_generator: Optional[torch.Generator] = None,
+               group: distributed.Group = None):
+    """Training loss.  Returns (loss, (logits, alphas, new BN state)).
+    Under data parallelism (`group`, see las_forward for the generators)
+    it is this rank's share of the global batch's loss: the ranks' losses
+    sum to it, and so do their gradients."""
     audio, audiolen, y, _ = batch
+    per_row = rank_generator if rank_generator is not None else generator
     if cfg.spec_augment:
         # the masks draw from the step's generator, as JAX splits the
         # step key for them; evaluation never masks
-        audio = augmentation.spec_augment(generator, audio, audiolen, cfg)
+        audio = augmentation.spec_augment(per_row, audio, audiolen, cfg)
     tf_rate = (scheduled_sampling_rate(cfg, step)
                if cfg.scheduled_sampling else 1.0)
     logits, ctc_logits, alphas, enc_len, state = las_forward(
         model, audio, audiolen, cfg, dec_steps, teacher=y, is_training=True,
-        generator=generator, tf_rate=tf_rate)
-    loss = attention_loss(logits, y, cfg)
+        generator=generator, tf_rate=tf_rate, rank_generator=rank_generator,
+        group=group)
+    loss = attention_loss(logits, y, cfg, group)
     if cfg.ctc:
-        loss = loss + cfg.ctc_weight * ctc_loss(ctc_logits, y, enc_len, cfg)
+        loss = loss + cfg.ctc_weight * ctc_loss(ctc_logits, y, enc_len, cfg,
+                                                group)
     return loss, (logits, alphas, state)
 
 

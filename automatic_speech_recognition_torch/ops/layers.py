@@ -17,7 +17,9 @@ purpose:
 - batch norm over the last axis: (x - mean) * rsqrt(var + 1e-3) * scale +
   bias, from the stored moving statistics at inference; in training from
   the batch's (all axes but the last, padded positions included, biased
-  variance, float32), with the moving update 0.99 old + 0.01 batch;
+  variance, float32), with the moving update 0.99 old + 0.01 batch; under
+  data parallelism the batch is the global one, as jnp.var over a
+  'data'-sharded array gives it;
 - dropout is inverted dropout; the embedding's variational noise is
   0.075 N(0, 1) over the whole table per lookup;
 - under bf16 compute (models/las.compute_cast) batch norm keeps JAX's
@@ -40,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import distributed
 from .quant import Dense
 
 
@@ -148,14 +151,25 @@ def bn_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
              mean: torch.Tensor, var: torch.Tensor, momentum: float = 0.99,
-             eps: float = 1e-3
+             eps: float = 1e-3, group: distributed.Group = None
              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Training batch norm: normalize with the batch statistics over every
     axis but the last (no length mask), and return the new moving
-    statistics, which carry no gradient."""
+    statistics, which carry no gradient.  With a process group the
+    statistics are those of the global batch, in two passes that carry
+    the gradient through the group's sums: the mean from the summed sums
+    and counts, then the variance from the summed squared deviations from
+    it (not E[x^2] - E[x]^2, which cancels)."""
     axes = tuple(range(x.dim() - 1))
     xf = x.float()
-    b_var, b_mean = torch.var_mean(xf, axes, correction=0)
+    if group is None:
+        b_var, b_mean = torch.var_mean(xf, axes, correction=0)
+    else:
+        count = distributed.reduced(
+            torch.tensor(float(xf[..., 0].numel()), device=x.device), group)
+        b_mean = distributed.all_reduce_sum(xf.sum(axes), group) / count
+        b_var = distributed.all_reduce_sum(
+            ((xf - b_mean) ** 2).sum(axes), group) / count
     with torch.no_grad():
         new = (momentum * mean + (1 - momentum) * b_mean,
                momentum * var + (1 - momentum) * b_var)
@@ -201,9 +215,12 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return bn_apply(x, self.scale, self.bias, self.mean, self.var)
 
-    def normalize(self, x: torch.Tensor, is_training: bool
+    def normalize(self, x: torch.Tensor, is_training: bool,
+                  group: distributed.Group = None
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-        """(y, (new mean, new var)); at inference the state is unchanged."""
+        """(y, (new mean, new var)); at inference the state is unchanged.
+        In training, `group` makes the statistics the global batch's."""
         if is_training:
-            return bn_train(x, self.scale, self.bias, self.mean, self.var)
+            return bn_train(x, self.scale, self.bias, self.mean, self.var,
+                            group=group)
         return self(x), (self.mean, self.var)

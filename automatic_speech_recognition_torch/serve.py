@@ -8,13 +8,15 @@
 Endpoints (stdlib http.server):
   POST /transcribe   body = WAV or FLAC bytes -> {"text": ...}
                      or JSON {"signal": [...floats], "sample_rate": N}
-  GET  /healthz      liveness and the torch device
+  GET  /healthz      liveness and the torch devices
   GET  /stats        batching and latency counters (ServingStats.snapshot)
 
 Concurrent requests are coalesced by serving.BatchingRecognizer into
 length-bucketed batches of --max_batch, one featurize + decode each (the
-fused CUDA kernel on a GPU); --warmup 1 runs every bucket once before the
-port opens.  A bad payload answers 400, a failure of the decode path 503.
+fused CUDA kernel on a GPU), split over every device --device names
+(api.Recognizer: a comma list is a data axis, 'cuda' one GPU); --warmup
+1 runs every bucket once before the port opens.  A bad payload answers
+400, a failure of the decode path 503.
 The server thread pool and the batcher stop together when serve_forever
 returns (KeyboardInterrupt, or httpd.shutdown() from another thread).
 """
@@ -37,7 +39,8 @@ from automatic_speech_recognition_torch.data.audio_io import read_audio
 
 from .api import Recognizer
 from .serving import BatchingRecognizer
-from .utils.device import disable_tf32, resolve_device, split_device
+from .parallel.mesh import devices_for
+from .utils.device import disable_tf32, split_device
 
 log = logging.getLogger("serve")
 
@@ -87,7 +90,8 @@ def decode_body(body: bytes, content_type: str, expect_sr: int) -> np.ndarray:
 def make_handler(server: BatchingRecognizer, sample_rate: int):
     """The request handler class over `server`."""
     device = server.rec.device
-    health = {"status": "ok", "devices": [str(device)],
+    health = {"status": "ok",
+              "devices": [str(d) for d in server.rec.mesh.devices],
               "device_name": (torch.cuda.get_device_name(device)
                               if device.type == "cuda" else "cpu")}
 
@@ -151,12 +155,11 @@ def main(argv: Optional[Sequence[str]] = None,
     cfg, opts = parse(argv)
     logging.basicConfig(force=True, stream=sys.stdout, level=logging.INFO,
                         format="%(asctime)s [%(levelname)s] %(message)s")
-    device = resolve_device(device_name)
-    if device.type == "cuda":
+    if devices_for(device_name)[0].type == "cuda":
         disable_tf32()
     rec = Recognizer.from_checkpoint(
         cfg.save_dir, cfg, epoch=cfg.restore_epoch,
-        lm_dir=cfg.lm_dir if cfg.apply_lm else "", device=device)
+        lm_dir=cfg.lm_dir if cfg.apply_lm else "", device=device_name)
     batcher = BatchingRecognizer(
         rec, max_batch=opts["max_batch"], max_wait_ms=opts["max_wait_ms"],
         beam_size=cfg.beam_size if cfg.beam_size > 1 else 0)
@@ -171,7 +174,8 @@ def main(argv: Optional[Sequence[str]] = None,
                                     make_handler(batcher, cfg.sample_rate))
         try:
             log.info("serving on %s:%d on %s (buckets %s s, max_batch %d, "
-                     "wait %.0f ms)", *httpd.server_address[:2], device,
+                     "wait %.0f ms)", *httpd.server_address[:2],
+                     ", ".join(map(str, rec.mesh.devices)),
                      batcher.bucket_seconds, batcher.max_batch,
                      opts["max_wait_ms"])
             if ready is not None:

@@ -20,8 +20,17 @@ and prints `WER: x.xxxx` (and `CER: x.xxxx` with --report_cer).  As in
 test.py, a batch that fails is skipped; here it is logged with its
 traceback and counted.  --dtype bfloat16 decodes in bf16 (the loader's
 bf16 feature batches reach the model bit for bit), --quantize_decoder
-int8 with int8 speller weights (ops/quant.py).  Refused: --num_partitions
-> 1 (ROADMAP item 8).
+int8 with int8 speller weights (ops/quant.py).
+
+A comma list of devices (--device cuda:0,cuda:1) evaluates over a data
+axis, as test.py's mesh over jax.devices(): one replica of the model on
+each (parallel/sharding.py), every batch padded to a multiple of the
+devices, featurized on the first, its rows split over the replicas and
+gathered back in order ('cpu,cpu' splits over two replicas on the CPU).
+--device cuda is one GPU (parallel/mesh.devices_for).  Under torchrun every
+process evaluates the whole split on its own GPU, as JAX's multi-process
+path does, and only the primary writes the files.  Refused:
+--num_partitions > 1 (tensor parallelism, ROADMAP item 12).
 
 Tiny CPU run:
   python -m automatic_speech_recognition_torch.test --device cpu \\
@@ -55,11 +64,12 @@ from automatic_speech_recognition_torch.utils.watchdog import StallWatchdog
 from .decoding.ctc import ctc_greedy_decode
 from .models.las import LAS
 from .ops import frontend
+from .parallel import distributed, sharding
+from .parallel.mesh import TENSOR_PARALLEL, devices_for, make_mesh
 from .training import trainer
 from .training.checkpoint import CheckpointManager
 from .ops.quant import maybe_quantize
-from .utils.device import (disable_tf32, host_tensor, resolve_device,
-                           split_device)
+from .utils.device import disable_tf32, host_tensor, split_device
 
 log = logging.getLogger("test")
 
@@ -87,16 +97,17 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalResult:
         for line in overridden:
             log.info("model flag from training snapshot: %s", line)
     if cfg.num_partitions > 1:
-        raise NotImplementedError(
-            "multi-GPU evaluation (--num_partitions > 1) is not ported yet "
-            "(ROADMAP item 8)")
+        raise NotImplementedError(TENSOR_PARALLEL)
     if cfg.eval_decoder not in ("attention", "ctc_greedy"):
         raise ValueError(f"unknown --eval_decoder {cfg.eval_decoder!r} "
                          "(want 'attention' or 'ctc_greedy')")
     if cfg.eval_decoder == "ctc_greedy" and not cfg.ctc:
         raise ValueError("--eval_decoder ctc_greedy needs --ctc True so "
                          "the checkpoint's CTC head is restored")
-    device = resolve_device(device_name)
+    distributed.maybe_initialize(device_name)
+    mesh = make_mesh(devices=devices_for(device_name),
+                     data_axis=cfg.data_axis, model_axis=cfg.model_axis)
+    device, dp = mesh.devices[0], len(mesh.devices)
     if device.type == "cuda":
         disable_tf32()
     watchdog = (StallWatchdog(cfg.stall_timeout_s, what="eval progress")
@@ -122,17 +133,32 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalResult:
     if model is None:
         raise FileNotFoundError(f"no checkpoint found in {cfg.save_dir}")
     model = maybe_quantize(model.to(device).eval(), cfg)
-    log.info("restored epoch %s on %s",
+    replicas = sharding.place_eval_params(mesh, model)
+    log.info("restored epoch %s; eval mesh %s over %s",
              cfg.restore_epoch if cfg.restore_epoch >= 0
-             else ckpt.latest_epoch(), device)
+             else ckpt.latest_epoch(), mesh.shape,
+             ", ".join(map(str, mesh.devices)))
+
+    def decode(replica, feats, featlen):
+        if cfg.eval_decoder == "ctc_greedy":
+            toks, lens = ctc_greedy_decode(replica.model, feats, featlen, cfg)
+            # pad the collapsed ids with <EOS> so detokenization cuts
+            # there even when the CTC path never emits one itself
+            steps = torch.arange(toks.shape[1], device=toks.device)
+            return torch.where(steps[None, :] < lens[:, None], toks, EOS_ID)
+        dec_steps = max(int(cfg.convert_rate * feats.shape[1]), 1)
+        return trainer.eval_forward(replica.model, feats, featlen, cfg,
+                                    dec_steps)[1]
 
     hyps, refs = [], []
     skipped, batches, busy_s = 0, 0, 0.0
     for audio, audiolen, ys, _ in loader:
         real_b = audio.shape[0]
-        # pad a partial batch up to its bucket's batch size; the padded
-        # rows carry audiolen = 1 and are dropped below
-        cap = max(loader.batch_size_for(audio.shape[1]) or real_b, real_b)
+        # pad a partial batch up to its bucket's batch size, rounded to a
+        # multiple of the devices; the padded rows carry audiolen = 1 and
+        # are dropped below
+        cap = sharding.pad_batch_to(
+            max(loader.batch_size_for(audio.shape[1]) or real_b, real_b), dp)
         if real_b < cap:
             pad = cap - real_b
             audio = np.pad(audio, ((0, pad),) + ((0, 0),) * (audio.ndim - 1))
@@ -143,17 +169,8 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalResult:
             featlen = host_tensor(audiolen).to(device)
             if cfg.audio_shards:
                 feats, featlen = frontend.featurize_batch(feats, featlen, cfg)
-            if cfg.eval_decoder == "ctc_greedy":
-                toks, lens = ctc_greedy_decode(model, feats, featlen, cfg)
-                # pad the collapsed ids with <EOS> so detokenization cuts
-                # there even when the CTC path never emits one itself
-                steps = torch.arange(toks.shape[1], device=device)
-                y_hat = torch.where(steps[None, :] < lens[:, None], toks,
-                                    EOS_ID)
-            else:
-                dec_steps = max(int(cfg.convert_rate * feats.shape[1]), 1)
-                _, y_hat = trainer.eval_forward(model, feats, featlen, cfg,
-                                                dec_steps)
+            y_hat = sharding.run_replicas(mesh, replicas, decode,
+                                          (feats, featlen))
             y_hat = y_hat.cpu().numpy()[:real_b]
         except Exception:  # test.py skips a failed batch; counted here
             log.warning("eval batch failed, skipping %d utts", real_b,
@@ -173,11 +190,12 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalResult:
 
     if watchdog is not None:
         watchdog.stop()
-    os.makedirs(cfg.log_dir, exist_ok=True)
-    with open(os.path.join(cfg.log_dir, "test_pred.txt"), "w") as f:
-        f.write("\n".join(hyps))
-    with open(os.path.join(cfg.log_dir, "test_gt.txt"), "w") as f:
-        f.write("\n".join(refs))
+    if distributed.is_primary():
+        os.makedirs(cfg.log_dir, exist_ok=True)
+        with open(os.path.join(cfg.log_dir, "test_pred.txt"), "w") as f:
+            f.write("\n".join(hyps))
+        with open(os.path.join(cfg.log_dir, "test_gt.txt"), "w") as f:
+            f.write("\n".join(refs))
 
     if not refs:
         raise RuntimeError(
@@ -192,7 +210,8 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalResult:
                     "dropped by the loader", loader.dropped)
     ms = 1e3 * busy_s / max(batches, 1)
     log.info("WER: %.4f over %d utterances in %d batches (%.2f ms/batch on "
-             "%s), %d skipped", w, len(refs), batches, ms, device, skipped)
+             "%s), %d skipped", w, len(refs), batches, ms,
+             ", ".join(map(str, mesh.devices)), skipped)
     c = corpus_cer(refs, hyps)
     if cfg.report_cer:
         log.info("CER: %.4f", c)
@@ -202,4 +221,7 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalResult:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.destroy()

@@ -14,8 +14,17 @@ the state dict alone, which
 `<epoch>.pt.tmp` and renames it over the target with os.replace, so a
 crash mid-save leaves the previous copy of that epoch whole; restore
 ignores the torn temp file and the next save replaces it.  The oldest
-epochs beyond max_to_keep are deleted after each save.  Single process:
-the port trains on one GPU.  The weights are float32 whatever
+epochs beyond max_to_keep are deleted after each save.
+
+Under data parallelism (a torch.distributed group of several processes)
+every process calls `save`, `save_weights` and `restore`, as every JAX
+process calls its manager: the primary alone writes, replaces and prunes,
+and the others wait for it at a barrier; every process restores.  The
+state is the same on every rank except the per-rank generators (dropout
+and augmentation streams), which a save gathers from every rank into the
+file (`rank_generators`, `aug_generators`) and a restore hands back to
+each rank by its index; a checkpoint of another world size leaves them
+as seeded.  The weights are float32 whatever
 cfg.dtype is (bf16 casts copies for the forward only), and an int8
 (ops/quant) model is never written: quantization is applied to a restored
 float checkpoint at inference.
@@ -31,6 +40,7 @@ import torch
 from torch import nn
 
 from ..models.las import LAS
+from ..parallel import distributed
 from .trainer import TrainState
 
 if TYPE_CHECKING:
@@ -67,6 +77,12 @@ class CheckpointManager:
         }
         if isinstance(state, TrainState):
             payload["aug_generator"] = state.aug_generator.get_state()
+            group = distributed.world_group()
+            if group is not None:
+                payload["rank_generators"] = distributed.gather_all(
+                    state.rank_generator.get_state(), group)
+                payload["aug_generators"] = distributed.gather_all(
+                    state.aug_generator.get_state(), group)
         self._write(epoch, payload)
 
     def save_weights(self, epoch: int, model: nn.Module) -> None:
@@ -75,18 +91,22 @@ class CheckpointManager:
         self._write(epoch, {"model": model.state_dict()})
 
     def _write(self, epoch: int, payload: Dict) -> None:
+        """The primary writes; every process leaves when the file is in
+        place."""
         if any(k.endswith(".w_scale") for k in payload["model"]):
             raise ValueError("refusing to checkpoint an int8-quantized "
                              "model: quantization is for inference only")
-        tmp = self._path(epoch) + _TMP_SUFFIX
-        with open(tmp, "wb") as f:
-            torch.save(payload, f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, self._path(epoch))
-        if self.max_to_keep > 0:
-            for old in self.all_epochs()[:-self.max_to_keep]:
-                os.remove(self._path(old))
+        if distributed.is_primary():
+            tmp = self._path(epoch) + _TMP_SUFFIX
+            with open(tmp, "wb") as f:
+                torch.save(payload, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self._path(epoch))
+            if self.max_to_keep > 0:
+                for old in self.all_epochs()[:-self.max_to_keep]:
+                    os.remove(self._path(old))
+        distributed.barrier(f"checkpoint {epoch} written")
 
     def all_epochs(self) -> List[int]:
         """Committed epochs, ascending."""
@@ -117,8 +137,17 @@ class CheckpointManager:
         state_like.optimizer.load_state_dict(payload["optimizer"])
         state_like.step = int(payload["step"])
         state_like.generator.set_state(payload["generator"])
-        if "aug_generator" in payload:
-            state_like.aug_generator.set_state(payload["aug_generator"])
+        if not isinstance(state_like, TrainState):
+            return state_like
+        rank, world = distributed.process_index(), distributed.process_count()
+        if world == 1:
+            if "aug_generator" in payload:
+                state_like.aug_generator.set_state(payload["aug_generator"])
+        elif len(payload.get("rank_generators", ())) == world:
+            state_like.rank_generator.set_state(
+                payload["rank_generators"][rank])
+            state_like.aug_generator.set_state(
+                payload["aug_generators"][rank])
         return state_like
 
     def load_weights(self, model_like: nn.Module, epoch: int = -1

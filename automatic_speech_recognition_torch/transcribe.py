@@ -10,7 +10,9 @@ Each path may be a WAV/FLAC file, a directory (searched recursively for
 per file, to stdout or --output; logs go to stderr.  Decoding runs
 through api.Recognizer.from_checkpoint and Recognizer.transcribe
 (length-sorted batches of --transcribe_batch files): greedy by default,
-beam search with --beam_size > 1 and every beam flag honoured.
+beam search with --beam_size > 1 and every beam flag honoured, with each
+batch's rows split over every device --device names ('cuda' is every
+visible GPU).
 `parse` and `expand_paths` are transcribe.py's, written again because
 that module imports JAX.
 """
@@ -27,7 +29,8 @@ from automatic_speech_recognition_torch.config import (
     Config, apply_saved_model_config, build_parser)
 
 from .api import Recognizer
-from .utils.device import disable_tf32, resolve_device, split_device
+from .parallel.mesh import devices_for
+from .utils.device import disable_tf32, split_device
 
 log = logging.getLogger("transcribe")
 
@@ -83,7 +86,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[str]:
         cfg, overridden = apply_saved_model_config(cfg, cfg.save_dir)
         for line in overridden:
             log.info("model flag from training snapshot: %s", line)
-    if resolve_device(device_name).type == "cuda":
+    if devices_for(device_name)[0].type == "cuda":
         disable_tf32()
     paths = expand_paths(opts["paths"])
     beam_size = cfg.beam_size if cfg.beam_size > 1 else 0

@@ -104,10 +104,35 @@
      ms per batch at 8 s float vs int8 in turns; int8 under bf16 keeps
      w_scale float32;
    - the kernel against its plain version on the phase's 8 s batch.
+8. Data parallelism at the same width over raw audio (cnn listener, the
+   fused kernel inside every step), 8 s x 48:
+   - train.main in a subprocess given torchrun's environment by hand
+     (WORLD_SIZE 1: NCCL on the card) for 11 steps, its ms per step
+     (steps 2-10) against the same steps without it in this process;
+   - two ranks on gloo over CUDA tensors, both on this card, each with 24
+     rows of one global batch whose halves hold different token counts,
+     apply_bn on: loss and gradient norm equal on both ranks and to one
+     process on the whole batch (rtol 1e-4 / 1e-3); the gradient
+     all-reduce's bytes and ms (CUDA events); the kernel against its
+     plain version on each rank's rows; one more step with dropout,
+     SpecAugment and the waveform perturbations, equal on both ranks;
+   - a Recognizer over a mesh that lists the card twice: greedy tokens
+     and beam-8 joint-CTC rank 0 against one device on 8 utterances, 7
+     requests padded to the data axis, the greedy batch's ms each way.
 
 Every phase raises on failure.  The last line is the result JSON; the
 line before it lists the kernels, with the launches of the serving,
-training, beam, recipe and configs runs.  Without CUDA it exits non-zero.
+training, beam, recipe, configs and parallel runs (the last counted in
+their processes).  Without CUDA it exits non-zero.
+
+    python3 chip_smoke.py --multichip    # a host with N > 1 GPUs
+
+runs only the data-parallel checks across N GPUs (phase_multichip):
+train.main on N NCCL processes against one process on the same 8 s x 48
+global batches, N NCCL ranks of 48 rows each against one process on the
+N x 48 batch (with the NCCL all-reduce's ms and each rank's ms per step
+against one process's at 48 rows), and greedy and beam decoding over a
+mesh of every GPU ('cuda:0,...,cuda:N-1') against one.
 """
 
 from __future__ import annotations
@@ -116,7 +141,10 @@ import copy
 import ctypes
 import glob
 import json
+import logging
 import os
+import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -156,11 +184,15 @@ from automatic_speech_recognition_torch.decoding import beam as beam_lib
 from automatic_speech_recognition_torch.models import char_rnn, las
 from automatic_speech_recognition_torch.ops import _kernels, augmentation, quant
 from automatic_speech_recognition_torch.ops import cuda_frontend, frontend
+from automatic_speech_recognition_torch.parallel import distributed, sharding
+from automatic_speech_recognition_torch.parallel.mesh import (devices_for,
+                                                              make_mesh)
 from automatic_speech_recognition_torch.serving import BatchingRecognizer
 from automatic_speech_recognition_torch.training import trainer
 from automatic_speech_recognition_torch.training.checkpoint import (
     CheckpointManager)
-from automatic_speech_recognition_torch.utils.device import resolve_device
+from automatic_speech_recognition_torch.utils.device import (disable_tf32,
+                                                              resolve_device)
 
 SR = 16000
 RTOL, ATOL = 1e-4, 2e-4          # tests/test_pallas_frontend.py
@@ -1853,6 +1885,386 @@ def phase_configs(dev, card: str, d: str) -> int:
     return launches
 
 
+# phase_parallel: data parallelism
+DP_SECONDS = 8                   # the 8 s x 48 training bucket
+DP_FRAMES = 800
+DP_BATCH = 48
+DP_STEPS = 11                    # train.main logs steps/s over steps 2-10
+# N ranks vs one process on one global batch: phase_train's kernel vs
+# plain frontend step tolerance (cuDNN sums a 24-row and a 48-row batch's
+# gradients in other orders)
+DP_LOSS_RTOL, DP_GNORM_RTOL = 1e-4, 1e-3
+DP_WORKER = r"""
+import json, sys
+import chip_smoke
+from automatic_speech_recognition_torch.parallel import distributed
+print("RESULT " + json.dumps(chip_smoke.dp_rank(*sys.argv[1:])), flush=True)
+distributed.destroy()
+"""
+TRAIN_WORKER = r"""
+import json, sys
+import torch
+from automatic_speech_recognition_torch import train
+from automatic_speech_recognition_torch.ops import cuda_frontend
+from automatic_speech_recognition_torch.parallel import distributed
+ts, hist = train.main(sys.argv[1:])
+print("RESULT " + json.dumps({
+    "launches": cuda_frontend.fused_frontend.launches, "step": ts.step,
+    "loss": hist["loss"], "world": distributed.process_count(),
+    "backend": torch.distributed.get_backend()}), flush=True)
+distributed.destroy()
+"""
+
+
+def dp_cfg() -> Config:
+    """train_cfg() with BN on (apply_bn), the case whose statistics must
+    be the global batch's."""
+    return train_cfg().replace(apply_bn=True)
+
+
+def write_dp_batch(path: str, rng: np.random.Generator, rows: int) -> None:
+    """One global batch of `rows` rows in the 8 s bucket: 4 synthesized
+    utterances tiled at 80-100 % of 8 s; the first half's transcripts are
+    CHARS_PER_SECOND a second, the second half's about half that, so the
+    ranks' shares hold different token counts."""
+    tok = CharEncoder()
+    names = [p for p in PHONES if p not in ("SIL", "SP")]
+    pool = []
+    for _ in range(4):
+        phones = list(rng.choice(names, DP_SECONDS * 10))
+        pool.append((synth_phones(phones, rng=rng), " ".join(phones)))
+    S = DP_FRAMES * 160 + 400
+    full = DP_SECONDS * CHARS_PER_SECOND
+    ids = [tok.encode(pool[i % 4][1][:full if i < rows // 2
+                                     else max(full // 2 - 3 * (i % 4), 1)]
+                      .strip(),
+                      with_eos=True) for i in range(rows)]
+    audio = np.zeros((rows, S), np.float32)
+    audiolen = np.zeros(rows, np.int32)
+    y = np.zeros((rows, max(map(len, ids))), np.int32)
+    for i in range(rows):
+        n = int(DP_SECONDS * SR * rng.uniform(0.8, 1.0))
+        audio[i, :n] = np.resize(pool[i % 4][0], n)
+        audiolen[i] = n
+        y[i, :len(ids[i])] = ids[i]
+    np.savez(path, audio=audio, audiolen=audiolen, y=y,
+             tokenlen=(y != 0).sum(1).astype(np.int32))
+
+
+def load_dp_batch(path: str, dev, rows=slice(None)) -> tuple:
+    with np.load(path) as z:
+        return tuple(torch.from_numpy(z[k][rows]).to(dev)
+                     for k in ("audio", "audiolen", "y", "tokenlen"))
+
+
+def dp_rank(path: str, backend: str) -> dict:
+    """One rank of a data-parallel job (launched by spawn_ranks): one step
+    on its share of the global batch, the gradient all-reduce timed alone,
+    ms per step over 3 more steps, the kernel held to its plain version on
+    its rows, then one step with dropout, SpecAugment and the waveform
+    perturbations on."""
+    distributed.maybe_initialize("cuda", backend=backend)
+    rank, world = distributed.process_index(), distributed.process_count()
+    dev = devices_for("cuda")[0]
+    disable_tf32()
+    _kernels.load("fused_frontend")
+    with np.load(path) as z:
+        per = z["y"].shape[0] // world
+    rows = load_dp_batch(path, dev, slice(rank * per, (rank + 1) * per))
+    cfg = dp_cfg()
+    group = distributed.world_group()
+    ts = trainer.create_train_state(cfg, dev, rank, world)
+    step_fn, ts, shard = trainer.make_mesh_train_step(
+        make_mesh(devices=[dev], group=group), ts, None, cfg)
+    cuda_frontend.fused_frontend.launches = 0
+    m = step_fn(ts, rows)
+    torch.cuda.synchronize()
+    launches = cuda_frontend.fused_frontend.launches
+    grads = [torch.ones_like(p) for p in ts.optimizer.params]
+    distributed.all_reduce_flat(grads, group)             # warm-up
+    ar_ms = [cuda_ms(lambda: distributed.all_reduce_flat(grads, group), 1)
+             for _ in range(5)]
+    with torch.no_grad():
+        fk, lk = frontend.featurize_batch(rows[0], rows[1], cfg)
+        fp, lp = frontend.featurize_batch(rows[0], rows[1],
+                                          cfg.replace(use_pallas=False))
+    if not torch.equal(lk, lp):
+        raise AssertionError(f"rank {rank}: featlen kernel vs plain differ")
+    err = check_close(f"rank {rank} features", fk, fp, RTOL, ATOL)
+    step_ms = []
+    cuda_frontend.fused_frontend.launches = 0
+    for _ in range(3):
+        distributed.barrier("timed step")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(ts, rows)["loss"].item()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    acfg = cfg.replace(dropout_rate=0.2, spec_augment=True,
+                       online_speed_perturb=True, online_volume_perturb=True,
+                       online_noise_perturb=True)
+    ma = trainer.train_step(ts, rows, acfg, group=group)
+    torch.cuda.synchronize()
+    launches += cuda_frontend.fused_frontend.launches
+    return {"rank": rank, "world": world, "rows": per,
+            "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+            "aug_loss": ma["loss"].item(),
+            "aug_grad_norm": ma["grad_norm"].item(),
+            "checksum": float(sum(p.double().sum() for p in
+                                  ts.model.parameters())),
+            "allreduce_ms": ar_ms, "step_ms": step_ms,
+            "allreduce_bytes": sum(g.numel() * g.element_size()
+                                   for g in grads),
+            "buckets": len(distributed._buckets(grads,
+                                                distributed.BUCKET_BYTES)),
+            "launches": launches, "kernel_err": err}
+
+
+def spawn_ranks(code: str, args: list, world: int, local_rank=None,
+                timeout: float = 300.0) -> list:
+    """`world` processes of `code` with torchrun's variables set by hand
+    (LOCAL_RANK local_rank(r), default r), from the repository root;
+    returns each one's RESULT object and its output.  Every process is
+    waited for or killed."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r if local_rank is None else local_rank(r)),
+                   MASTER_ADDR="localhost", MASTER_PORT=port)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, *args], env=env,
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [l for l in out.splitlines() if l.startswith("RESULT ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"rank {r} of {world} exited "
+                                 f"{p.returncode}:\n{out[-6000:]}")
+        results.append((json.loads(lines[-1][7:]), out))
+    return results
+
+
+def steps_per_sec(out: str) -> float:
+    """train.main's steps/s at step 10 (the window of steps 2-10)."""
+    hits = re.findall(r"step 10/\d+ .*\(([\d.]+) steps/s\)", out)
+    if not hits:
+        raise AssertionError(f"no step-10 log line in:\n{out[-3000:]}")
+    return float(hits[-1])
+
+
+def dp_train(dev, card: str, d: str, world: int) -> int:
+    """train.main on `world` processes given torchrun's environment (NCCL,
+    one GPU each; WORLD_SIZE 1 on one card) over the 8 s x 48 global
+    batches, against the same steps in this process without it: the
+    losses and ms per step."""
+    flags = with_flags(PUBLISHED_FLAGS, bucket_boundaries_train=DP_FRAMES)
+    flags += ["--shard_dir", d, "--bucket_batch_sizes", str(DP_BATCH),
+              "--epoch", "1", "--steps_per_epoch", str(DP_STEPS)]
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(TRAIN_WORKER, flags + [
+        "--save_dir", os.path.join(d, f"dp_world{world}"),
+        "--summary_dir", os.path.join(d, f"dp_world{world}_summary")], world)
+    wall = time.perf_counter() - t0
+    res, out = ranks[0]
+    for r, _ in ranks:
+        if ((r["world"], r["backend"], r["step"]) != (world, "nccl", DP_STEPS)
+                or r["loss"] != res["loss"] or r["launches"] < DP_STEPS):
+            raise AssertionError(f"world-{world} run: {r} vs {res}")
+    ms_dp = 1e3 / steps_per_sec(out)
+    mesh_line = [l for l in out.splitlines() if "mesh:" in l][-1]
+
+    log_lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: log_lines.append(record.getMessage())
+    logging.getLogger("train").addHandler(handler)
+    cuda_frontend.fused_frontend.launches = 0
+    try:
+        ts, hist = train_cli.main(flags + [
+            "--save_dir", os.path.join(d, f"dp_plain{world}"),
+            "--summary_dir", os.path.join(d, f"dp_plain{world}_summary")])
+    finally:
+        logging.getLogger("train").removeHandler(handler)
+    torch.cuda.synchronize()
+    launches = cuda_frontend.fused_frontend.launches
+    ms_plain = 1e3 / steps_per_sec("\n".join(log_lines))
+    if ts.step != DP_STEPS or not np.all(np.isfinite(hist["loss"])):
+        raise AssertionError(f"plain run: step {ts.step}, {hist}")
+    rel = np.abs(np.array(res["loss"]) / np.array(hist["loss"]) - 1)
+    if rel[0] > DP_LOSS_RTOL:
+        raise AssertionError(f"first loss, {world} processes vs one: "
+                             f"{res['loss'][0]} vs {hist['loss'][0]}")
+    print(f"data parallel, train.main on {world} process(es) [{card}]: "
+          f"{mesh_line.split('] ')[-1]}; {DP_STEPS} steps at {DP_SECONDS} s "
+          f"x {DP_BATCH} (global): {ms_dp:.2f} ms/step (steps 2-10, "
+          f"{wall:.1f} s wall with start-up) vs {ms_plain:.2f} ms/step in "
+          f"one process without torchrun; losses equal on every rank, vs "
+          f"one process max rel diff {rel.max():.2e} over the {DP_STEPS} "
+          f"steps (first {rel[0]:.2e}); fused_frontend launches "
+          f"{sum(r['launches'] for r, _ in ranks)} + {launches}")
+    return sum(r["launches"] for r, _ in ranks) + launches
+
+
+def dp_ranks(dev, card: str, d: str, world: int, backend: str,
+             per_rank: int, local_rank=None) -> int:
+    """`world` ranks, `per_rank` rows each of one global batch, against one
+    process on the whole batch; each rank's ms per step against one
+    process's on per_rank rows."""
+    rows = world * per_rank
+    path = os.path.join(d, f"dp_batch_{rows}.npz")
+    write_dp_batch(path, np.random.default_rng(8), rows)
+    batch = load_dp_batch(path, dev)
+    tokens = [int(batch[3][r * per_rank:(r + 1) * per_rank].sum())
+              for r in range(world)]
+    t0 = time.perf_counter()
+    ranks = [r for r, _ in spawn_ranks(DP_WORKER, [path, backend],
+                                       world, local_rank)]
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for k in ("loss", "grad_norm", "aug_loss", "aug_grad_norm",
+                  "checksum"):
+            if r[k] != r0[k] or not np.isfinite(r[k]):
+                raise AssertionError(f"ranks differ in {k}: {r0[k]} vs "
+                                     f"{r[k]}")
+    cfg = dp_cfg()
+    m = trainer.train_step(trainer.create_train_state(cfg, dev), batch, cfg)
+    loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+    if (abs(r0["loss"] - loss) > DP_LOSS_RTOL * abs(loss)
+            or abs(r0["grad_norm"] - gnorm) > DP_GNORM_RTOL * abs(gnorm)):
+        raise AssertionError(f"{world} ranks vs one process: loss "
+                             f"{r0['loss']} vs {loss}, grad norm "
+                             f"{r0['grad_norm']} vs {gnorm}")
+    ts = trainer.create_train_state(cfg, dev)
+    share = tuple(x[:per_rank] for x in batch)
+    trainer.train_step(ts, share, cfg)
+    one_ms = [cuda_ms(lambda: trainer.train_step(ts, share, cfg), 1)
+              for _ in range(3)]
+    med = lambda xs: f"{np.median(xs):.2f} (of {[round(x, 2) for x in xs]})"
+    print(f"data parallel, {world} ranks on {backend} [{card}]: global batch "
+          f"{DP_SECONDS} s x {rows} (tokens per rank {tokens}), apply_bn; "
+          f"loss {r0['loss']:.6f} vs one process {loss:.6f} (rel "
+          f"{abs(r0['loss'] - loss) / loss:.2e}), grad norm "
+          f"{r0['grad_norm']:.6f} vs {gnorm:.6f} (rel "
+          f"{abs(r0['grad_norm'] - gnorm) / gnorm:.2e}); equal on every "
+          f"rank; with dropout 0.2, SpecAugment and speed / volume / noise: "
+          f"loss {r0['aug_loss']:.6f}, grad norm {r0['aug_grad_norm']:.6f} "
+          f"on every rank, parameter sums equal; gradient all-reduce "
+          f"{r0['allreduce_bytes']} bytes in {r0['buckets']} buffers, ms "
+          f"{med(r0['allreduce_ms'])} (CUDA events); ms per step, rank 0 at "
+          f"{per_rank} rows {med(r0['step_ms'])} vs one process at "
+          f"{per_rank} rows {med(one_ms)}; kernel vs plain on each rank's "
+          f"rows max abs err {max(r['kernel_err'] for r in ranks):.3e}; "
+          f"{wall:.1f} s wall")
+    return sum(r["launches"] for r in ranks)
+
+
+def dp_eval(dev, card: str, name: str) -> int:
+    """Greedy and beam-8 joint-CTC decoding over the mesh `name` names
+    against one device, 8 utterances at 8 s, and the greedy batch's ms
+    each way in turns."""
+    cfg = published_cfg().replace(ctc=True, beam_logprob=True,
+                                  ctc_beam_weight=0.5)
+    model = las.init(cfg, torch.Generator().manual_seed(0), dev)
+    with torch.no_grad():
+        model.speller.out.bias[EOS_ID] -= EOS_SHIFT
+        model.speller.ctc_head.bias[EOS_ID] -= EOS_SHIFT
+    one = Recognizer(model, cfg, CharEncoder(), "cuda:0")
+    many = Recognizer(model, cfg, CharEncoder(), name)
+    n = many.mesh.shape["data"]
+    if n < 2 or many.replicas[1].model is model:
+        raise AssertionError(f"{name}: the mesh did not place replicas")
+    rng = np.random.default_rng(9)
+    sigs = [speech(rng, DP_SECONDS * rng.uniform(0.8, 1.0))
+            for _ in range(8)]
+    cuda_frontend.fused_frontend.launches = 0
+    feats, featlen = many._features(sigs, pad_seconds=DP_SECONDS)
+    lg2, y2 = many.greedy(feats, featlen)
+    lg1, y1 = one.greedy(feats, featlen)
+    b2 = many.beam(feats, featlen, BEAM_SIZE)
+    b1 = one.beam(feats, featlen, BEAM_SIZE)
+    texts = many.transcribe_signals(sigs[:7], beam_size=BEAM_SIZE,
+                                    pad_seconds=DP_SECONDS)
+    torch.cuda.synchronize()
+    launches = cuda_frontend.fused_frontend.launches
+    fns = {"one": lambda: one.greedy(feats, featlen),
+           "many": lambda: many.greedy(feats, featlen)}
+    runs = {k: [] for k in fns}
+    for order in (("one", "many"), ("many", "one")) * 2:
+        for k in order:
+            runs[k].append(round(cuda_ms(fns[k], 1), 2))
+    ms = {k: f"{np.median(v):.2f} (of {v})" for k, v in runs.items()}
+    greedy_ties, equal = 0, []
+    for b in range(8):
+        diff = (y2[b] != y1[b]).nonzero()
+        if not len(diff):
+            equal.append(b)
+            continue
+        t = int(diff[0])
+        gap = float(lg1[b, t].topk(2).values.diff().abs())
+        if gap > NEAR_TIE:
+            raise AssertionError(f"greedy over {name}, utterance {b}: step "
+                                 f"{t} differs with a top-2 logit gap of "
+                                 f"{gap}")
+        greedy_ties += 1
+    err = float((lg2[equal] - lg1[equal]).abs().max()) if equal else 0.0
+    ties = compare_rank0(f"beam over {name} vs one device", b2, b1)
+    if len(texts) != 7 or not all(isinstance(t, str) for t in texts):
+        raise AssertionError(f"7 requests over {name}: {texts}")
+    print(f"eval over a data axis of {n} ({name}) [{card}]: greedy tokens "
+          f"equal to one device on {len(equal)} of 8 rows, {greedy_ties} "
+          f"near ties (logits of the equal rows max abs err {err:.3e}); "
+          f"beam {BEAM_SIZE} joint CTC rank 0 equal on {8 - ties} of 8, "
+          f"{ties} near ties; 7 requests (padded to "
+          f"{sharding.pad_batch_to(7, n)}) "
+          f"through transcribe_signals; fused_frontend launches {launches}; "
+          f"greedy batch of 8, ms in turns: one device {ms['one']}, {n} "
+          f"replicas {ms['many']}")
+    return launches
+
+
+def phase_parallel(dev, card: str, d: str) -> int:
+    """Data parallelism at published width over raw audio (cnn listener,
+    the fused kernel inside every step) on one card: NCCL at world 1, two
+    gloo ranks sharing the card, eval over the card listed twice; returns
+    the kernel launches."""
+    t0 = time.perf_counter()
+    launches = dp_train(dev, card, d, 1)
+    launches += dp_ranks(dev, card, d, 2, "gloo", DP_BATCH // 2,
+                         local_rank=lambda r: 0)
+    launches += dp_eval(dev, card, "cuda:0,cuda:0")
+    print(f"parallel phase [{card}]: {time.perf_counter() - t0:.1f} s, "
+          f"fused_frontend launches {launches}")
+    return launches
+
+
+def phase_multichip(dev, card: str, d: str) -> int:
+    """`python3 chip_smoke.py --multichip` on a host of N > 1 GPUs: train.main
+    on N NCCL processes against one, N NCCL ranks at DP_BATCH rows each
+    against one process on the N x DP_BATCH batch, and eval over every
+    GPU against one; returns the kernel launches."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise AssertionError(f"--multichip needs 2 or more GPUs, found {n}")
+    t0 = time.perf_counter()
+    launches = dp_train(dev, card, d, n)
+    launches += dp_ranks(dev, card, d, n, "nccl", DP_BATCH)
+    launches += dp_eval(dev, card, ",".join(f"cuda:{i}" for i in range(n)))
+    print(f"multichip phase, {n} GPUs [{card}]: "
+          f"{time.perf_counter() - t0:.1f} s, fused_frontend launches "
+          f"{launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -1875,6 +2287,14 @@ def main() -> int:
     _kernels.load("fused_frontend")
     print(f"fused_frontend build + load: {time.perf_counter() - t0:.2f} s")
     print(_kernels.build_log.get("fused_frontend", "(already built)").strip())
+    if sys.argv[1:] == ["--multichip"]:
+        with tempfile.TemporaryDirectory() as d:
+            write_train_shards(d, np.random.default_rng(2))
+            phase_multichip(dev, card, d)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     k = phase_kernel(dev, card)
     launches = phase_serving(dev, card)
@@ -1887,6 +2307,7 @@ def main() -> int:
         launches += phase_beam(dev, card)
         launches += phase_recipe(dev, card)
         launches += phase_configs(dev, card, d)
+        launches += phase_parallel(dev, card, d)
 
     print(json.dumps({"kernels": [{
         "name": "fused_frontend", "route": "cuda", "source": KERNEL_SOURCE,

@@ -39,7 +39,8 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
     names = [m.name for m in pkgutil.walk_packages(port.__path__,
                                                    port.__name__ + ".")]
     assert {f"automatic_speech_recognition_torch.{m}" for m in
-            ("ops.cuda_frontend", *ENTRY_POINTS)} <= set(names)
+            ("ops.cuda_frontend", "parallel.distributed", "parallel.mesh",
+             "parallel.sharding", *ENTRY_POINTS)} <= set(names)
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['automatic_speech_recognition_tpu'] = None\n"

@@ -126,7 +126,7 @@ def test_decode_over_feature_dumps_equals_raw_audio(assets, capsys,
 
 
 def test_decode_refuses_what_it_cannot_honour(assets, capsys):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         _decode(assets, capsys, "--num_partitions", "2")
     # int8 decoder weights are ported: the flag runs
     wer, _ = _decode(assets, capsys, "--quantize_decoder", "int8")

@@ -316,9 +316,9 @@ def test_bf16_feed_reaches_train_bit_exact(feature_shards, tmp_path,
     seen = []
     step = trainer.train_step
 
-    def spy(ts, batch, cfg, dec_steps=None):
+    def spy(ts, batch, cfg, dec_steps=None, **kwargs):
         seen.append(batch[0].clone())
-        return step(ts, batch, cfg, dec_steps)
+        return step(ts, batch, cfg, dec_steps, **kwargs)
 
     monkeypatch.setattr(trainer, "train_step", spy)
     argv = FLAGS + ["--shard_dir", d, "--save_dir", str(tmp_path / "m"),

@@ -233,7 +233,7 @@ def test_test_takes_the_saved_model_flags(model):
 
 
 @pytest.mark.parametrize("flag,value,match", [
-    ("--num_partitions", "2", "item 8")])
+    ("--num_partitions", "2", "item 12")])
 def test_test_refuses_unported_flags(tmp_path, flag, value, match):
     with pytest.raises(NotImplementedError, match=match):
         test_cli.main(["--device", "cpu", "--shard_dir", str(tmp_path),

@@ -423,9 +423,27 @@ def test_overfit_tiny_batch():
 
 
 def test_unported_training_paths_raise(rng):
+    """make_mesh_train_step over a one-device mesh is train_step itself
+    (same metrics, same state); tensor parallelism and a mesh of several
+    devices in one process are refused, and so is train_multi_step."""
+    from automatic_speech_recognition_torch.parallel.mesh import make_mesh
     cfg = small_cfg()
+    batch = make_batch(rng)
     ts = ttrainer.create_train_state(cfg, CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttrainer.make_mesh_train_step(None, ts, None, cfg)
+    ref = ttrainer.create_train_state(cfg, CPU)
+    step_fn, ts, shard = ttrainer.make_mesh_train_step(
+        make_mesh(devices=[CPU]), ts, batch, cfg)
+    got = step_fn(ts, shard(batch))
+    want = ttrainer.train_step(ref, tuple(map(_t, batch)), cfg)
+    assert got["loss"].item() == want["loss"].item()
+    assert got["grad_norm"].item() == want["grad_norm"].item()
+    for a, b in zip(ts.model.state_dict().values(),
+                    ref.model.state_dict().values()):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        make_mesh(devices=[CPU], num_partitions=2)
+    with pytest.raises(ValueError, match="torchrun"):
+        ttrainer.make_mesh_train_step(make_mesh(devices=[CPU, CPU]), ts,
+                                      batch, cfg)
     with pytest.raises(NotImplementedError, match="Not ported"):
         ttrainer.train_multi_step(ts, None, cfg, 4)

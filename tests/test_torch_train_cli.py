@@ -90,7 +90,7 @@ def test_profile_dir_and_verbose_logging(tmp_path, rng):
 @pytest.mark.parametrize("flag,value,match", [
     ("--steps_per_dispatch", "2", "Not ported"),
     ("--recycle_after_steps", "5", "Not ported"),
-    ("--num_partitions", "2", "item 8"),
+    ("--num_partitions", "2", "item 12"),
 ])
 def test_tpu_only_flags_are_refused(tmp_path, flag, value, match):
     with pytest.raises(NotImplementedError, match=match):
