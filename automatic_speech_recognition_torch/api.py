@@ -19,7 +19,9 @@ on each (parallel/sharding.py); a request batch is padded to a multiple
 of the devices with 1-sample silence, featurized on the first, its rows
 decoded on the replicas at once and gathered in order.  'cuda' is one
 GPU, as 'cuda:N' is: replicas on threads of one process measured slower
-than one device (PERF.md, Findings).
+than one device (PERF.md, Findings).  cfg.num_partitions k splits
+each replica column-wise over k consecutive devices of the list
+(parallel/sharding.py), the rows going over len / k replicas.
 """
 
 from __future__ import annotations
@@ -39,22 +41,22 @@ from .models import char_rnn
 from .models.las import LAS
 from .ops import frontend, quant
 from .parallel import sharding
-from .parallel.mesh import devices_for, make_mesh
+from .parallel.mesh import eval_mesh
 from .training import trainer
 from .training.checkpoint import CheckpointManager
 
 
 class Recognizer:
     """LAS model + config + tokenizer (+ optional fusion LM) over the
-    devices `device` names (parallel/mesh.devices_for): `model` and `lm`
-    on the first, a replica of each on every other."""
+    devices `device` names (parallel/mesh.eval_mesh): `model` and `lm`
+    on the first, a replica of each on every other, or, with
+    cfg.num_partitions k, a replica split over each run of k."""
 
     def __init__(self, model: LAS, cfg: Config, tokenizer, device,
                  lm: Optional[char_rnn.CharRNN] = None,
                  lm_cfg: Optional[char_rnn.LMConfig] = None):
-        self.mesh = make_mesh(devices=devices_for(str(device)),
-                              data_axis=cfg.data_axis,
-                              model_axis=cfg.model_axis)
+        self.mesh = eval_mesh(str(device), cfg.num_partitions,
+                              cfg.data_axis, cfg.model_axis)
         self.device = self.mesh.devices[0]
         self.model = model.to(self.device).eval()
         self.cfg = cfg
@@ -136,7 +138,8 @@ class Recognizer:
         # rows of 1-sample silence make the batch divide by the devices;
         # their hypotheses are dropped below
         signals = list(signals) + [np.zeros(1, np.float32)] * (
-            sharding.pad_batch_to(n, len(self.mesh.devices)) - n)
+            sharding.pad_batch_to(n, self.mesh.shape[self.cfg.data_axis])
+            - n)
         feats, featlen = self._features(signals, pad_seconds)
         if beam_size > 1:
             res = self.beam(feats, featlen, beam_size)

@@ -20,10 +20,14 @@ as test does) and prints `WER: x.xxxx`
 bf16, --quantize_decoder int8 with int8 speller (and fusion-LM cell)
 weights.  A comma list of devices (--device cuda:0,cuda:1) decodes over
 a data axis: a replica of the model and the fusion LM on each, every
-batch padded to a multiple of the devices with 1-frame rows and its rows
-split over them (parallel/sharding.py); --device cuda is one GPU.  Under torchrun every process decodes the split on its own GPU
-and only the primary writes the files.  Refused: --num_partitions > 1
-(tensor parallelism, ROADMAP item 12).  `batch_iter` is decode.py's,
+batch padded to a multiple of the replicas with 1-frame rows and its rows
+split over them (parallel/sharding.py); --device cuda is one GPU.  With
+--num_partitions k each run of k devices holds one replica of both, split
+column-wise over them (the JAX package's param_spec layout).  Under
+torchrun every process decodes the split on its own GPU with the model
+whole (--num_partitions is logged and set aside, as in JAX's
+multi-process path), and only the primary writes the files.
+`batch_iter` is decode.py's,
 written again because that module imports JAX.
 
 Tiny CPU run:
@@ -57,7 +61,7 @@ from .models import char_rnn
 from .models.las import LAS
 from .ops import frontend
 from .parallel import distributed, sharding
-from .parallel.mesh import TENSOR_PARALLEL, devices_for, make_mesh
+from .parallel.mesh import eval_mesh
 from .training.checkpoint import CheckpointManager
 from .ops.quant import maybe_quantize, quantize_lm
 from .utils.device import disable_tf32, split_device
@@ -110,8 +114,6 @@ def load_split(cfg: Config) -> Tuple[List[np.ndarray], List[np.ndarray]]:
 def check_flags(cfg: Config) -> None:
     """Refuse what the port cannot decode; the joint-CTC guards of
     decode.py."""
-    if cfg.num_partitions > 1:
-        raise NotImplementedError(TENSOR_PARALLEL)
     if cfg.ctc_beam_weight > 0:
         if not cfg.ctc:
             raise ValueError(
@@ -143,9 +145,9 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     log.info("parameters:\n%s", cfg.to_json())
     check_flags(cfg)
     distributed.maybe_initialize(device_name)
-    mesh = make_mesh(devices=devices_for(device_name),
-                     data_axis=cfg.data_axis, model_axis=cfg.model_axis)
-    device, dp = mesh.devices[0], len(mesh.devices)
+    mesh = eval_mesh(device_name, cfg.num_partitions, cfg.data_axis,
+                     cfg.model_axis)
+    device, dp = mesh.devices[0], mesh.shape[cfg.data_axis]
     if device.type == "cuda":
         disable_tf32()
     watchdog = (StallWatchdog(cfg.stall_timeout_s, what="decode progress")

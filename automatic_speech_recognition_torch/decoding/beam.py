@@ -218,7 +218,7 @@ def _beam_search(model: LAS, feats, featlen, cfg: Config, max_steps: int,
         steps = s + 1
         logits, new_states, alphas = las.decode_step(
             sp, enc_k, enc_len_k, dec_states,
-            L.embedding_lookup(sp.embedding.weight, prev_ids.reshape(BK)),
+            L.embed(sp.embedding, prev_ids.reshape(BK)),
             prev_align.reshape(BK, T), h_proj_k)
         logits = logits.float()
         if use_lm:

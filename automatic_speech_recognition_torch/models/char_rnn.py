@@ -154,7 +154,7 @@ def _embed(model: CharRNN, cfg: LMConfig, ids: torch.Tensor) -> torch.Tensor:
     gives a zero vector (clamp, look up, then zero)."""
     safe = ids.long().clamp(min=0)
     if cfg.embedding_size > 0:
-        x = F.embedding(safe, model.embedding.weight)
+        x = L.embed(model.embedding, safe)
     else:
         x = F.one_hot(safe, cfg.vocab_size).to(torch.float32)
     return x.masked_fill((ids < 0)[..., None], 0.0)

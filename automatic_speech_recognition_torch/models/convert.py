@@ -13,7 +13,9 @@ w[:D].T, weight_hh = w[D:].T, bias_ih = b (bias_hh is a zero buffer);
 location conv (K, 1, C) <-> (C, 1, K).  A missing or extra key, or a wrong
 shape, raises.  `per_parameter` maps a tree shaped like the params (an
 optax Adam moment or MultiSteps accumulator) through the same layouts, one
-array per port parameter (import_checkpoint.py).
+array per port parameter (import_checkpoint.py).  `split_dims` is JAX's
+tensor-parallel rule (parallel/sharding.param_spec) decided on each JAX
+leaf and carried to the port tensors that leaf fills.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from torch import nn
 from automatic_speech_recognition_torch.config import Config
 
 from ..ops import layers as L
+from ..ops.quant import QuantLinear
+from ..parallel.sharding import param_spec
 from . import char_rnn, las
 
 _Target = List[Tuple[torch.Tensor, Callable[[np.ndarray], np.ndarray]]]
@@ -75,7 +79,10 @@ def _np(t: torch.Tensor) -> np.ndarray:
 def _dense(targets, path: str, m: nn.Linear, w: str = "w",
            b: str = "b") -> None:
     prefix = f"{path}/" if path else ""
-    targets[prefix + w] = [(m.weight, _t)]
+    # an int8 QuantLinear's rows stand where the float weight's do: its
+    # tree is read for shapes (split_dims), never as values (_leaf)
+    targets[prefix + w] = [(m.q if isinstance(m, QuantLinear) else m.weight,
+                            _t)]
     if m.bias is not None:
         targets[prefix + b] = [(m.bias, _same)]
 
@@ -97,7 +104,47 @@ def _leaf(fills: _Target) -> np.ndarray:
         (w_ih, _), (w_hh, _) = fills
         return np.concatenate([_np(w_ih).T, _np(w_hh).T], 0)
     (tensor, fn), = fills
+    if tensor.dtype == torch.int8:
+        raise ValueError("an int8-quantized model has no float JAX tree")
     return _INVERSE[fn](_np(tensor))
+
+
+def _leaf_shape(fills: _Target) -> Tuple[int, ...]:
+    """The shape of the JAX leaf the port tensors fill (_leaf's, without
+    reading a value)."""
+    if len(fills) == 2:
+        (w_ih, _), (w_hh, _) = fills
+        return (w_ih.shape[1] + w_hh.shape[1], w_ih.shape[0])
+    (tensor, fn), = fills
+    return _INVERSE[fn](np.broadcast_to(np.float32(0),
+                                        tuple(tensor.shape))).shape
+
+
+def split_dims(model: Union[las.LAS, char_rnn.CharRNN], model_size: int
+               ) -> Dict[str, int]:
+    """Port tensor name -> the dim split over a model axis of model_size:
+    the tensors of every JAX leaf parallel/sharding.param_spec (the JAX
+    package's rule) splits, along the port axis that is the leaf's last.
+    That is dim 0 of a Linear, Conv2d, nn.RNN
+    (both halves of the BiRNN's fused kernel), location-conv or int8
+    weight (whose per-row scale follows it), and dim 1 of an embedding
+    table; biases, BN, `u` and conv_b are 1-D and stay whole."""
+    targets = (_targets(model) if isinstance(model, las.LAS)
+               else _lm_targets(model))
+    names = {id(t): n for n, t in list(model.named_parameters())
+             + list(model.named_buffers())}
+    dims: Dict[str, int] = {}
+    for fills in targets.values():
+        if param_spec(_leaf_shape(fills), model_size) is None:
+            continue
+        for tensor, fn in fills:
+            name = names[id(tensor)]
+            # every layout but the table's (_same) puts the leaf's last
+            # axis first
+            dims[name] = tensor.dim() - 1 if fn is _same else 0
+            if tensor.dtype == torch.int8:
+                dims[name.rpartition(".")[0] + ".w_scale"] = 0
+    return dims
 
 
 def _bn(targets, path: str, bn) -> None:

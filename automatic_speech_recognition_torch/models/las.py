@@ -184,7 +184,7 @@ class Listener(nn.Module):
         state: BNState = {}
         for i, (conv, bn) in enumerate(((self.conv0, self.bn_conv0),
                                         (self.conv1, self.bn_conv1))):
-            x = L.conv2d_apply(x, conv.weight, conv.bias, stride=2)
+            x = L.conv2d_layer(conv, x, stride=2)
             if bn is not None:
                 x, state[f"bn_conv{i}"] = bn.normalize(x, is_training, group)
             x = torch.relu(x)
@@ -286,8 +286,8 @@ def speller_greedy(sp: Speller, enc_out, enc_len, dec_steps: int
     """Greedy argmax feedback for dec_steps.  Returns logits (B, steps, V)
     and alphas (B, steps, T_enc)."""
     B, T_enc, _ = enc_out.shape
-    emb = L.embedding_lookup(
-        sp.embedding.weight,
+    emb = L.embed(
+        sp.embedding,
         torch.full((B,), SOS_ID, dtype=torch.long, device=enc_out.device))
     states = enc_out.new_zeros(len(sp.cells), B, sp.out.in_features)
     align = enc_out.new_zeros(B, T_enc)
@@ -296,7 +296,7 @@ def speller_greedy(sp: Speller, enc_out, enc_len, dec_steps: int
     for _ in range(dec_steps):
         lg, states, align = decode_step(sp, enc_out, enc_len, states, emb,
                                         align, h_proj)
-        emb = L.embedding_lookup(sp.embedding.weight, lg.argmax(-1))
+        emb = L.embed(sp.embedding, lg.argmax(-1))
         logits.append(lg)
         alphas.append(align)
     return torch.stack(logits, 1), torch.stack(alphas, 1)
@@ -348,9 +348,9 @@ def speller_train(sp: Speller, cfg: Config, enc_out, enc_len,
         tf_rate = torch.as_tensor(tf_rate, dtype=torch.float32, device=dev)
     per_row = rank_generator if rank_generator is not None else generator
     vn = generator if cfg.add_vn else None
-    table = sp.embedding.weight
-    emb = L.embedding_lookup(
-        table, torch.full((B,), SOS_ID, dtype=torch.long, device=dev), vn)
+    emb = L.embed(
+        sp.embedding, torch.full((B,), SOS_ID, dtype=torch.long, device=dev),
+        vn)
     states = enc_out.new_zeros(len(sp.cells), B, sp.out.in_features)
     align = enc_out.new_zeros(B, T_enc)
     h_proj = att.precompute_hidden(sp.attention, enc_out)
@@ -370,7 +370,7 @@ def speller_train(sp: Speller, cfg: Config, enc_out, enc_len,
                                                       -1), 1,
                                         generator=per_row)[:, 0]
             ids = torch.where(tf_rate > coin, ids, sampled)
-        emb = L.dropout(L.embedding_lookup(table, ids, vn),
+        emb = L.dropout(L.embed(sp.embedding, ids, vn),
                         cfg.dropout_rate, True, per_row)
         logits.append(lg)
         alphas.append(align)

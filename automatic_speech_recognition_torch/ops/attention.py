@@ -7,7 +7,10 @@
 - location-aware: adds f W_f, f = SAME 1-D cross-correlation of the
   previous alignment (1 -> C channels, kernel K, plus conv_b).  The JAX
   package evaluates f as a Toeplitz matmul for the TPU's sake; here it is
-  F.conv1d with the kernel stored as (C, 1, K), the same math.
+  F.conv1d with the kernel stored as (C, 1, K), the same math.  Under
+  tensor parallelism (parallel/tensor_parallel.py) w_h, w_s and w_f are
+  column-parallel Linears, and a split conv_w gives each position its
+  channels of the conv, gathered before conv_b.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor_parallel as tp
 from . import layers
 
 NEG_INF = -1e8
@@ -77,8 +81,11 @@ def location_features(p: Attention, align: torch.Tensor) -> torch.Tensor:
     """(B, T) previous alignment -> (B, T, C): SAME conv1d + conv_b."""
     K = p.conv_w.shape[-1]
     low = (K - 1) // 2                          # XLA SAME: low = (K-1)//2
-    f = F.conv1d(F.pad(align[:, None, :], (low, K - 1 - low)), p.conv_w,
-                 p.conv_b)
+    x = F.pad(align[:, None, :], (low, K - 1 - low))
+    if tp.is_split(p, "conv_w"):
+        f = tp.column(p, F.conv1d, x, "conv_w", 1) + p.conv_b[:, None]
+    else:
+        f = F.conv1d(x, p.conv_w, p.conv_b)
     return f.transpose(1, 2)
 
 

@@ -26,7 +26,13 @@ purpose:
   bn_apply dtype flow: statistics in float32, cast to the activation's
   dtype where they meet it;
 - a cell or dense layer may be an int8 ops/quant.QuantLinear (inference
-  only), called like the nn.Linear it replaces.
+  only), called like the nn.Linear it replaces;
+- under tensor parallelism (parallel/tensor_parallel.py) a split Linear
+  gathers its own columns; `conv2d_layer` and `embed` compute their
+  split conv's channels and table's columns and gather them, and
+  `birnn_apply` runs cuDNN's RNN on the gathered whole weights (cuDNN
+  takes whole matrices; a split recurrence would need a kernel of its
+  own).
 
 Randomness comes from an explicit torch.Generator on the tensor's device:
 a stochastic function given none is a no-op, as a JAX function given no
@@ -43,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import distributed
+from ..parallel import tensor_parallel as tp
 from .quant import Dense
 
 
@@ -62,6 +69,27 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
             table.shape, generator=generator, device=table.device,
             dtype=table.dtype)
     return F.embedding(ids, table)
+
+
+def embed(embedding: nn.Embedding, ids: torch.Tensor,
+          generator: Optional[torch.Generator] = None,
+          vn_std: float = 0.075) -> torch.Tensor:
+    """embedding_lookup on an nn.Embedding.  A table split over a model
+    axis (along E) looks up each position's columns and gathers them; the
+    noise is drawn at the whole table's shape and sliced, so the draws do
+    not depend on the split."""
+    if not tp.is_split(embedding, "weight"):
+        return embedding_lookup(embedding.weight, ids, generator, vn_std)
+    tables = tp.parts(embedding, "weight")
+    axis = embedding.tp_axis
+    if generator is not None:
+        noise = vn_std * torch.randn(
+            (embedding.num_embeddings, embedding.embedding_dim),
+            generator=generator, device=tables[0].device,
+            dtype=tables[0].dtype)
+        tables = [t + n for t, n in zip(tables, axis.split(noise, 1))]
+    return axis.gather([F.embedding(i, t) for i, t in
+                        zip(axis.scatter(ids), tables)], -1)
 
 
 def rnn_cell_apply(cell: Dense, x: torch.Tensor,
@@ -117,8 +145,17 @@ def make_birnn(in_dim: int, units: int) -> nn.RNN:
 
 
 def birnn_apply(rnn: nn.RNN, xs: torch.Tensor) -> torch.Tensor:
-    """(B, T, D) -> (B, T, 2U) = [forward | backward] outputs."""
-    out, _ = rnn(xs)
+    """(B, T, D) -> (B, T, 2U) = [forward | backward] outputs.  Weights
+    split over a model axis are gathered whole first; cuDNN then copies
+    them into its own buffer at every call, as they are not one flat
+    chunk."""
+    if tp.axis_of(rnn) is None:
+        out, _ = rnn(xs)
+        return out
+    weights = [tp.full(rnn, name) for name in rnn._flat_weights_names]
+    h0 = xs.new_zeros(2, xs.shape[0], rnn.hidden_size)
+    out, _ = torch.rnn_tanh(xs, h0, weights, True, 1, 0.0, rnn.training,
+                            True, True)
     return out
 
 
@@ -138,6 +175,16 @@ def conv2d_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (wh, ww, th, tw)), weight,
                  bias, stride=stride)
     return y.permute(0, 2, 3, 1)
+
+
+def conv2d_layer(conv: nn.Conv2d, x: torch.Tensor, stride: int = 2
+                 ) -> torch.Tensor:
+    """conv2d_apply with a Conv2d's weights; split over a model axis, each
+    position's output channels, gathered, plus the whole bias."""
+    if not tp.is_split(conv, "weight"):
+        return conv2d_apply(x, conv.weight, conv.bias, stride)
+    return tp.column(conv, lambda xi, w: conv2d_apply(xi, w, None, stride),
+                     x) + conv.bias
 
 
 def bn_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

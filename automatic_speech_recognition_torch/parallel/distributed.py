@@ -15,7 +15,12 @@ without them, so every entry point calls it unconditionally.
 
 Gradients, BN statistics and loss normalizers go through all_reduce,
 the state through broadcast; all_gather collects the per-rank generator
-states into a checkpoint.  Every buffer lives where the backend wants it
+states into a checkpoint.  With --num_partitions k (tensor parallelism),
+`model_grid` splits the world into a (data, model) grid of k-wide model
+groups of consecutive ranks, as JAX's make_mesh reshapes its devices:
+the data collectives then run over a data group (the ranks holding the
+same columns of the model), the activation and weight gathers over a
+model group (parallel/tensor_parallel.py).  Every buffer lives where the backend wants it
 (comm_device): on the CPU under gloo, so two ranks sharing one card can
 run gloo over CUDA tensors.
 """
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import logging
 import os
+from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -97,6 +103,53 @@ def is_primary() -> bool:
 
 def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", "0")) if is_initialized() else 0
+
+
+def local_world_size() -> int:
+    """The processes on this host: torchrun's LOCAL_WORLD_SIZE (the world
+    size where a launcher does not set it, as one host's does not need
+    to); 1 without a group."""
+    if not is_initialized():
+        return 1
+    return int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size()))
+
+
+@dataclass(frozen=True)
+class Grid:
+    """This rank's place on the (data, model) grid of a job with
+    num_partitions k: rank r sits at (data, model) = divmod(r, k).
+    `data_group`: the ranks at this model index (None when the data axis
+    is 1); `model_group`: the k ranks at this data index (None when k is
+    1)."""
+    data_index: int
+    model_index: int
+    data_group: Group
+    model_group: Group
+
+
+def model_grid(num_partitions: int) -> Grid:
+    """Build the data and model groups of the world for num_partitions
+    (every rank calls it, in the same order as the other collectives).
+    With k = 1 the data group is the world's (world_group()); a group of
+    one rank is None, the 'no collective' value."""
+    world, rank = process_count(), process_index()
+    k = num_partitions
+    if world % k:
+        raise ValueError(f"{world} processes not divisible by {k} "
+                         "partitions")
+    dp = world // k
+    if k == 1:
+        return Grid(rank, 0, world_group(), None)
+    model_group = data_group = None
+    if dp > 1:
+        data_group, _ = dist.new_subgroups_by_enumeration(
+            [list(range(m, world, k)) for m in range(k)])
+    if k < world:
+        model_group, _ = dist.new_subgroups_by_enumeration(
+            [list(range(d * k, (d + 1) * k)) for d in range(dp)])
+    else:
+        model_group = dist.group.WORLD
+    return Grid(rank // k, rank % k, data_group, model_group)
 
 
 def world_group() -> Group:

@@ -29,10 +29,15 @@ axis, as test.py's mesh over jax.devices(): one replica of the model on
 each (parallel/sharding.py), every batch padded to a multiple of the
 devices, featurized on the first, its rows split over the replicas and
 gathered back in order ('cpu,cpu' splits over two replicas on the CPU).
---device cuda is one GPU (parallel/mesh.devices_for).  Under torchrun every
-process evaluates the whole split on its own GPU, as JAX's multi-process
-path does, and only the primary writes the files.  Refused:
---num_partitions > 1 (tensor parallelism, ROADMAP item 12).
+--device cuda is one GPU (parallel/mesh.devices_for).  With
+--num_partitions k each run of k listed devices holds one replica, its
+weights split column-wise over them (parallel/sharding.py, the JAX
+package's param_spec layout), and the rows go over the len / k replicas
+(--device cpu,cpu --num_partitions 2 is one replica split over two
+positions on the CPU).  Under torchrun every process evaluates the whole
+split on its own GPU with the model whole, as JAX's multi-process path
+does (--num_partitions is logged and set aside), and only the primary
+writes the files.
 
 Tiny CPU run:
   python -m automatic_speech_recognition_torch.test --device cpu \\
@@ -67,7 +72,7 @@ from .decoding.ctc import ctc_greedy_decode
 from .models.las import LAS
 from .ops import frontend
 from .parallel import distributed, sharding
-from .parallel.mesh import TENSOR_PARALLEL, devices_for, make_mesh
+from .parallel.mesh import eval_mesh
 from .training import trainer
 from .training.checkpoint import CheckpointManager
 from .ops.quant import maybe_quantize
@@ -98,8 +103,6 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalResult:
         cfg, overridden = apply_saved_model_config(cfg, cfg.save_dir)
         for line in overridden:
             log.info("model flag from training snapshot: %s", line)
-    if cfg.num_partitions > 1:
-        raise NotImplementedError(TENSOR_PARALLEL)
     if cfg.eval_decoder not in ("attention", "ctc_greedy"):
         raise ValueError(f"unknown --eval_decoder {cfg.eval_decoder!r} "
                          "(want 'attention' or 'ctc_greedy')")
@@ -107,9 +110,9 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalResult:
         raise ValueError("--eval_decoder ctc_greedy needs --ctc True so "
                          "the checkpoint's CTC head is restored")
     distributed.maybe_initialize(device_name)
-    mesh = make_mesh(devices=devices_for(device_name),
-                     data_axis=cfg.data_axis, model_axis=cfg.model_axis)
-    device, dp = mesh.devices[0], len(mesh.devices)
+    mesh = eval_mesh(device_name, cfg.num_partitions, cfg.data_axis,
+                     cfg.model_axis)
+    device, dp = mesh.devices[0], mesh.shape[cfg.data_axis]
     if device.type == "cuda":
         disable_tf32()
     watchdog = (StallWatchdog(cfg.stall_timeout_s, what="eval progress")
@@ -157,7 +160,7 @@ def main(argv: Optional[Sequence[str]] = None) -> EvalResult:
     for audio, audiolen, ys, _ in loader:
         real_b = audio.shape[0]
         # pad a partial batch up to its bucket's batch size, rounded to a
-        # multiple of the devices; the padded rows carry audiolen = 1 and
+        # multiple of the replicas; the padded rows carry audiolen = 1 and
         # are dropped below
         cap = sharding.pad_batch_to(
             max(loader.batch_size_for(audio.shape[1]) or real_b, real_b), dp)

@@ -20,11 +20,17 @@ Under data parallelism (a torch.distributed group of several processes)
 every process calls `save`, `save_weights` and `restore`, as every JAX
 process calls its manager: the primary alone writes, replaces and prunes,
 and the others wait for it at a barrier; every process restores.  The
-state is the same on every rank except the per-rank generators (dropout
-and augmentation streams), which a save gathers from every rank into the
-file (`rank_generators`, `aug_generators`) and a restore hands back to
-each rank by its index; a checkpoint of another world size leaves them
-as seeded.  The weights are float32 whatever
+state is the same on every rank except the per-row generators (dropout
+and augmentation streams, one per place on the data axis), which a save
+gathers into the file (`rank_generators`, `aug_generators`, by data
+index) and a restore hands back to each rank by its data index; a
+checkpoint of another data-axis width leaves them as seeded.  Under
+tensor parallelism (parallel/sharding.py) a save gathers the split
+weights, Adam moments and MultiSteps accumulator whole from the model
+group first (a collective: every rank saves), and a restore cuts each
+rank's rows from the whole tensors, so a checkpoint is the same whatever
+num_partitions wrote it and restores at any other.  The weights are
+float32 whatever
 cfg.dtype is (bf16 casts copies for the forward only), and an int8
 (ops/quant) model is never written: quantization is applied to a restored
 float checkpoint at inference.
@@ -40,7 +46,7 @@ import torch
 from torch import nn
 
 from ..models.las import LAS
-from ..parallel import distributed
+from ..parallel import distributed, sharding
 from .trainer import TrainState
 
 if TYPE_CHECKING:
@@ -69,26 +75,32 @@ class CheckpointManager:
         Always synchronous (`block` is kept for the interface): the state
         is copied to the host inside torch.save."""
         del block
+        optimizer = state.optimizer.state_dict()
+        if isinstance(state, TrainState):
+            optimizer = sharding.whole_optimizer_state(state.model,
+                                                       optimizer)
         payload = {
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "model": sharding.whole_state_dict(state.model),
+            "optimizer": optimizer,
             "step": state.step,
             "generator": state.generator.get_state(),
         }
         if isinstance(state, TrainState):
             payload["aug_generator"] = state.aug_generator.get_state()
-            group = distributed.world_group()
-            if group is not None:
-                payload["rank_generators"] = distributed.gather_all(
-                    state.rank_generator.get_state(), group)
-                payload["aug_generators"] = distributed.gather_all(
-                    state.aug_generator.get_state(), group)
+            if state.data_count > 1:
+                # one stream per data index: the first rank of each model
+                # group, whose others draw the same
+                stride = distributed.process_count() // state.data_count
+                for key, gen in (("rank_generators", state.rank_generator),
+                                 ("aug_generators", state.aug_generator)):
+                    payload[key] = distributed.gather_all(
+                        gen.get_state(), distributed.world_group())[::stride]
         self.write_payload(epoch, payload)
 
     def save_weights(self, epoch: int, model: nn.Module) -> None:
         """Save a model's weights alone, for evaluation (`load_weights`);
         `restore` cannot resume training from such a file."""
-        self.write_payload(epoch, {"model": model.state_dict()})
+        self.write_payload(epoch, {"model": sharding.whole_state_dict(model)})
 
     def write_payload(self, epoch: int, payload: Dict) -> None:
         """Write a payload (the dict `save` builds) as `epoch`: the primary
@@ -134,21 +146,25 @@ class CheckpointManager:
         payload = self.load_payload(epoch)
         if payload is None:
             return None
-        state_like.model.load_state_dict(payload["model"])
-        state_like.optimizer.load_state_dict(payload["optimizer"])
+        sharding.load_whole_state_dict(state_like.model, payload["model"])
+        optimizer = payload["optimizer"]
+        if isinstance(state_like, TrainState):
+            optimizer = sharding.slice_optimizer_state(state_like.model,
+                                                       optimizer)
+        state_like.optimizer.load_state_dict(optimizer)
         state_like.step = int(payload["step"])
         state_like.generator.set_state(payload["generator"])
         if not isinstance(state_like, TrainState):
             return state_like
-        rank, world = distributed.process_index(), distributed.process_count()
-        if world == 1:
+        index, count = state_like.data_index, state_like.data_count
+        if count == 1:
             if "aug_generator" in payload:
                 state_like.aug_generator.set_state(payload["aug_generator"])
-        elif len(payload.get("rank_generators", ())) == world:
+        elif len(payload.get("rank_generators", ())) == count:
             state_like.rank_generator.set_state(
-                payload["rank_generators"][rank])
+                payload["rank_generators"][index])
             state_like.aug_generator.set_state(
-                payload["aug_generators"][rank])
+                payload["aug_generators"][index])
         return state_like
 
     def load_weights(self, model_like: nn.Module, epoch: int = -1
@@ -159,7 +175,7 @@ class CheckpointManager:
         payload = self.load_payload(epoch)
         if payload is None:
             return None
-        model_like.load_state_dict(payload["model"])
+        sharding.load_whole_state_dict(model_like, payload["model"])
         return model_like
 
     def restore_for_eval(self, model_like: LAS, epoch: int = -1

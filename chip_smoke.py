@@ -136,10 +136,26 @@
    step equal to the source's); and the port's supervisor: a worker
    that exits 18 once, then trains from the imported directory, is
    retried to success, one that exits 20 stops at once.
+10. Tensor parallelism at the same width over raw audio (cnn listener,
+   apply_bn, the fused kernel inside every rank's step), 8 s x 24: two
+   gloo ranks at --num_partitions 2 sharing this card, each holding its
+   columns of every split weight (the JAX package's param_spec layout):
+   loss and gradient norm equal on both ranks and to one process on the
+   same batch (rtol 1e-4 / 1e-3), the gathered parameters' sums equal,
+   the bytes of parameters and Adam state a rank holds against one
+   process's, the model axis's all-gathers and backward all-reduces in
+   one step (count and ms, each timed between two synchronizes), ms per
+   step against one process, and the kernel against its plain version
+   on the rows; then a Recognizer whose one replica is split over the
+   card listed twice: greedy tokens and beam-8 joint-CTC rank 0 against
+   one device, and the greedy and beam batches' ms each way; one
+   published-width BiRNN layer's forward and backward with its weights
+   whole against gathered from two parts (cuDNN compacts them each call).
 
 Every phase raises on failure.  The last line is the result JSON; the
 line before it lists the kernels, with the launches of the serving,
-training, beam, recipe, configs, parallel and chain runs (the last two
+training, beam, recipe, configs, parallel, tensor-parallel and chain
+runs (those of the parallel and tensor-parallel ranks and of the chain
 counted in their processes).  Without CUDA it exits non-zero.
 
     python3 chip_smoke.py --multichip    # a host with N > 1 GPUs
@@ -149,7 +165,11 @@ train.main on N NCCL processes against one process on the same 8 s x 48
 global batches, N NCCL ranks of 48 rows each against one process on the
 N x 48 batch (with the NCCL all-reduce's ms and each rank's ms per step
 against one process's at 48 rows), and greedy and beam decoding over a
-mesh of every GPU ('cuda:0,...,cuda:N-1') against one.
+mesh of every GPU ('cuda:0,...,cuda:N-1') against one; then tensor
+parallelism over NCCL: 4 ranks at dp 2 x tp 2 and at dp 1 x tp 4 (with
+N >= 4) on the 8 s x 24 batch against one process, as phase 10 measures
+them, and greedy and beam decoding with the model split over
+'cuda:0,cuda:1' against one GPU.
 """
 
 from __future__ import annotations
@@ -201,8 +221,11 @@ from automatic_speech_recognition_torch.data.audio_io import (read_audio,
 from automatic_speech_recognition_torch.decoding import beam as beam_lib
 from automatic_speech_recognition_torch.models import char_rnn, convert, las
 from automatic_speech_recognition_torch.ops import _kernels, augmentation, quant
+from automatic_speech_recognition_torch.ops import layers as L
 from automatic_speech_recognition_torch.ops import cuda_frontend, frontend
-from automatic_speech_recognition_torch.parallel import distributed, sharding
+from automatic_speech_recognition_torch.parallel import (distributed,
+                                                         sharding,
+                                                         tensor_parallel)
 from automatic_speech_recognition_torch.parallel.mesh import (devices_for,
                                                               make_mesh)
 from automatic_speech_recognition_torch.serving import BatchingRecognizer
@@ -2188,10 +2211,11 @@ def dp_ranks(dev, card: str, d: str, world: int, backend: str,
     return sum(r["launches"] for r in ranks)
 
 
-def dp_eval(dev, card: str, name: str) -> int:
+def dp_eval(dev, card: str, name: str, num_partitions: int = 1) -> int:
     """Greedy and beam-8 joint-CTC decoding over the mesh `name` names
-    against one device, 8 utterances at 8 s, and the greedy batch's ms
-    each way in turns."""
+    (num_partitions of its devices to a replica, split over them) against
+    one device, 8 utterances at 8 s, and the greedy batch's ms each way
+    in turns."""
     cfg = published_cfg().replace(ctc=True, beam_logprob=True,
                                   ctc_beam_weight=0.5)
     model = las.init(cfg, torch.Generator().manual_seed(0), dev)
@@ -2199,9 +2223,15 @@ def dp_eval(dev, card: str, name: str) -> int:
         model.speller.out.bias[EOS_ID] -= EOS_SHIFT
         model.speller.ctc_head.bias[EOS_ID] -= EOS_SHIFT
     one = Recognizer(model, cfg, CharEncoder(), "cuda:0")
-    many = Recognizer(model, cfg, CharEncoder(), name)
+    many = Recognizer(model, cfg.replace(num_partitions=num_partitions),
+                      CharEncoder(), name)
     n = many.mesh.shape["data"]
-    if n < 2 or many.replicas[1].model is model:
+    if num_partitions > 1:
+        split = tensor_parallel.axis_of(many.replicas[0].model.speller.out)
+        if split is None or split.size != num_partitions:
+            raise AssertionError(f"{name}: the replica is not split over "
+                                 f"{num_partitions} devices")
+    elif n < 2 or many.replicas[1].model is model:
         raise AssertionError(f"{name}: the mesh did not place replicas")
     rng = np.random.default_rng(9)
     sigs = [speech(rng, DP_SECONDS * rng.uniform(0.8, 1.0))
@@ -2240,7 +2270,7 @@ def dp_eval(dev, card: str, name: str) -> int:
     ties = compare_rank0(f"beam over {name} vs one device", b2, b1)
     if len(texts) != 7 or not all(isinstance(t, str) for t in texts):
         raise AssertionError(f"7 requests over {name}: {texts}")
-    print(f"eval over a data axis of {n} ({name}) [{card}]: greedy tokens "
+    print(f"eval over {many.mesh.shape} ({name}) [{card}]: greedy tokens "
           f"equal to one device on {len(equal)} of 8 rows, {greedy_ties} "
           f"near ties (logits of the equal rows max abs err {err:.3e}); "
           f"beam {BEAM_SIZE} joint CTC rank 0 equal on {8 - ties} of 8, "
@@ -2248,7 +2278,10 @@ def dp_eval(dev, card: str, name: str) -> int:
           f"{sharding.pad_batch_to(7, n)}) "
           f"through transcribe_signals; fused_frontend launches {launches}; "
           f"greedy batch of 8, ms in turns: one device {ms['one']}, {n} "
-          f"replicas {ms['many']}")
+          f"replicas {ms['many']}; beam {BEAM_SIZE} ms one device "
+          f"{cuda_ms(lambda: one.beam(feats, featlen, BEAM_SIZE), 1):.2f}, "
+          f"over the mesh "
+          f"{cuda_ms(lambda: many.beam(feats, featlen, BEAM_SIZE), 1):.2f}")
     return launches
 
 
@@ -2267,11 +2300,220 @@ def phase_parallel(dev, card: str, d: str) -> int:
     return launches
 
 
+# phase_tensor_parallel: tensor parallelism
+TP_BATCH = 24                    # rows of the 8 s global batch
+TP_WORKER = r"""
+import json, sys
+import chip_smoke
+from automatic_speech_recognition_torch.parallel import distributed
+print("RESULT " + json.dumps(chip_smoke.tp_rank(*sys.argv[1:])), flush=True)
+distributed.destroy()
+"""
+
+
+def state_bytes(ts) -> int:
+    """Bytes of a rank's parameters and Adam moments (after a step)."""
+    opt = ts.optimizer
+    n = sum(p.numel() * p.element_size() for p in opt.params)
+    for p in opt.params:
+        n += sum(v.numel() * v.element_size()
+                 for v in opt.adam.state.get(p, {}).values()
+                 if torch.is_tensor(v) and v.dim() > 0)
+    return n
+
+
+def timed_collectives(fn) -> dict:
+    """Run fn() with the model axis's collectives (the forward gathers and
+    copy_to_model's backward all-reduces) counted and each timed between
+    two synchronizes: kind -> [count, ms]."""
+    counts = {"all_gather": [0, 0.0], "all_reduce": [0, 0.0]}
+    gather = tensor_parallel._all_gather
+    backward = tensor_parallel._CopyToModel.backward
+
+    def timed(kind, f):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*args)
+            torch.cuda.synchronize()
+            counts[kind][0] += 1
+            counts[kind][1] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return call
+
+    tensor_parallel._all_gather = timed("all_gather", gather)
+    tensor_parallel._CopyToModel.backward = staticmethod(
+        timed("all_reduce", backward))
+    try:
+        fn()
+    finally:
+        tensor_parallel._all_gather = gather
+        tensor_parallel._CopyToModel.backward = staticmethod(backward)
+    return counts
+
+
+def tp_rank(path: str, backend: str, partitions: str) -> dict:
+    """One rank of a dp x tp job (launched by spawn_ranks): one step on
+    its data index's rows with its columns of the model, its bytes of
+    parameters and Adam state, one step with the model axis's collectives
+    counted and timed, the kernel held to its plain version on its rows,
+    and ms per step over 3 more steps."""
+    k = int(partitions)
+    distributed.maybe_initialize("cuda", backend=backend)
+    rank, world = distributed.process_index(), distributed.process_count()
+    dev = devices_for("cuda")[0]
+    disable_tf32()
+    _kernels.load("fused_frontend")
+    mesh = make_mesh(devices=[dev], group=distributed.world_group(),
+                     num_partitions=k)
+    dp, d = mesh.shape["data"], mesh.data_index
+    with np.load(path) as z:
+        per = z["y"].shape[0] // dp
+    rows = load_dp_batch(path, dev, slice(d * per, (d + 1) * per))
+    cfg = dp_cfg()
+    ts = trainer.create_train_state(cfg, dev, d, dp)
+    step_fn, ts, _ = trainer.make_mesh_train_step(mesh, ts, None, cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_frontend.fused_frontend.launches = 0
+    m = step_fn(ts, rows)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    nbytes = state_bytes(ts)
+    checksum = float(sum(v.double().sum() for v in
+                         sharding.whole_state_dict(ts.model).values()))
+    colls = timed_collectives(lambda: step_fn(ts, rows)["loss"].item())
+    launches = cuda_frontend.fused_frontend.launches
+    with torch.no_grad():
+        fk, lk = frontend.featurize_batch(rows[0], rows[1], cfg)
+        fp, lp = frontend.featurize_batch(rows[0], rows[1],
+                                          cfg.replace(use_pallas=False))
+    if not torch.equal(lk, lp):
+        raise AssertionError(f"rank {rank}: featlen kernel vs plain differ")
+    err = check_close(f"rank {rank} features", fk, fp, RTOL, ATOL)
+    step_ms = []
+    cuda_frontend.fused_frontend.launches = 0
+    for _ in range(3):
+        distributed.barrier("timed step")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(ts, rows)["loss"].item()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches += cuda_frontend.fused_frontend.launches
+    return {"rank": rank, "world": world, "shape": mesh.shape,
+            "data_index": d, "rows": per, "loss": m["loss"].item(),
+            "grad_norm": m["grad_norm"].item(), "checksum": checksum,
+            "state_bytes": nbytes, "peak_bytes": peak,
+            "collectives": colls, "step_ms": step_ms,
+            "launches": launches, "kernel_err": err}
+
+
+def tp_ranks(dev, card: str, d: str, world: int, k: int, backend: str,
+             local_rank=None) -> int:
+    """`world` ranks on a (world / k) x k grid over one TP_BATCH-row global
+    batch at 8 s, against one process on the whole batch: loss, gradient
+    norm, bytes of parameters and Adam state a rank holds, the model
+    axis's collectives a step, and ms per step; returns the launches."""
+    path = os.path.join(d, f"tp_batch_{TP_BATCH}.npz")
+    if not os.path.exists(path):
+        write_dp_batch(path, np.random.default_rng(10), TP_BATCH)
+    batch = load_dp_batch(path, dev)
+    t0 = time.perf_counter()
+    ranks = [r for r, _ in spawn_ranks(TP_WORKER, [path, backend, str(k)],
+                                       world, local_rank)]
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for key in ("loss", "grad_norm", "checksum"):
+            if r[key] != r0[key] or not np.isfinite(r[key]):
+                raise AssertionError(f"ranks differ in {key}: {r0[key]} vs "
+                                     f"{r[key]}")
+    cfg = dp_cfg()
+    ts = trainer.create_train_state(cfg, dev)
+    m = trainer.train_step(ts, batch, cfg)
+    loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+    if (abs(r0["loss"] - loss) > DP_LOSS_RTOL * abs(loss)
+            or abs(r0["grad_norm"] - gnorm) > DP_GNORM_RTOL * abs(gnorm)):
+        raise AssertionError(f"{r0['shape']} vs one process: loss "
+                             f"{r0['loss']} vs {loss}, grad norm "
+                             f"{r0['grad_norm']} vs {gnorm}")
+    one_bytes = state_bytes(ts)
+    one_ms = [cuda_ms(lambda: trainer.train_step(ts, batch, cfg), 1)
+              for _ in range(3)]
+    med = lambda xs: f"{np.median(xs):.2f} (of {[round(x, 2) for x in xs]})"
+    colls = {kind: f"{n} in {ms:.2f} ms"
+             for kind, (n, ms) in r0["collectives"].items()}
+    print(f"tensor parallel, {world} ranks on {backend}, mesh "
+          f"{r0['shape']} [{card}]: global batch {DP_SECONDS} s x "
+          f"{TP_BATCH}, {r0['rows']} rows a data index, apply_bn; loss "
+          f"{r0['loss']:.6f} vs one process {loss:.6f} (rel "
+          f"{abs(r0['loss'] - loss) / loss:.2e}), grad norm "
+          f"{r0['grad_norm']:.6f} vs {gnorm:.6f} (rel "
+          f"{abs(r0['grad_norm'] - gnorm) / gnorm:.2e}); equal on every "
+          f"rank with the gathered parameters' sums; parameters + Adam "
+          f"state a rank {[r['state_bytes'] for r in ranks]} bytes vs one "
+          f"process {one_bytes}; peak device memory a rank "
+          f"{[round(r['peak_bytes'] / 1e9, 3) for r in ranks]} GB; model-axis "
+          f"collectives in rank 0's instrumented step (each between two "
+          f"synchronizes): {colls}; ms per step, rank 0 {med(r0['step_ms'])} "
+          f"vs one process on the whole batch {med(one_ms)}; kernel vs "
+          f"plain on each rank's rows max abs err "
+          f"{max(r['kernel_err'] for r in ranks):.3e}; {wall:.1f} s wall")
+    return sum(r["launches"] for r in ranks)
+
+
+def rnn_gather_cost(dev, card: str) -> None:
+    """One published-width BiRNN layer (512 in, 512 units, over the 8 s x
+    24 batch's 200 frames after the two stride-2 convs) forward and
+    backward with its weights whole, against the same layer split over
+    the card listed twice, whose weights are gathered whole and compacted
+    by cuDNN at every call, in turns: what the gathered weights cost."""
+    u = published_cfg().enc_units
+    whole = L.make_birnn(u, u).to(dev).train()
+    split = copy.deepcopy(whole)
+    tensor_parallel.shard_(split, {n: 0 for n, _ in split.named_parameters()
+                                   if n.startswith("weight")},
+                           tensor_parallel.DeviceAxis([dev, dev]))
+    x = torch.randn(TP_BATCH, 200, u, device=dev, requires_grad=True)
+    with torch.no_grad():
+        err = float((L.birnn_apply(split, x) - L.birnn_apply(whole, x))
+                    .abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"split BiRNN vs whole: max abs err {err}")
+    fns = {k: (lambda rnn=rnn: L.birnn_apply(rnn, x).sum().backward())
+           for k, rnn in (("whole", whole), ("split", split))}
+    runs = {k: [] for k in fns}
+    for order in (("whole", "split"), ("split", "whole")) * 2:
+        for k in order:
+            runs[k].append(round(cuda_ms(fns[k], 3), 3))
+    print(f"BiRNN layer {u} x {u}, {TP_BATCH} x 200 frames, forward + "
+          f"backward [{card}]: weights whole {np.median(runs['whole']):.3f}"
+          f" ms (of {runs['whole']}), gathered from two parts and compacted"
+          f" by cuDNN {np.median(runs['split']):.3f} ms (of "
+          f"{runs['split']}); outputs max abs err {err:.3e}")
+
+
+def phase_tensor_parallel(dev, card: str, d: str) -> int:
+    """Tensor parallelism at published width over raw audio (the fused
+    kernel inside every rank's step) on one card: two gloo ranks at
+    num_partitions 2 sharing the card against one process, and greedy
+    and beam-8 joint-CTC decoding with the model split over the card
+    listed twice against one device; returns the kernel launches."""
+    t0 = time.perf_counter()
+    launches = tp_ranks(dev, card, d, 2, 2, "gloo", local_rank=lambda r: 0)
+    launches += dp_eval(dev, card, "cuda:0,cuda:0", num_partitions=2)
+    rnn_gather_cost(dev, card)
+    print(f"tensor-parallel phase [{card}]: {time.perf_counter() - t0:.1f} "
+          f"s, fused_frontend launches {launches}")
+    return launches
+
+
 def phase_multichip(dev, card: str, d: str) -> int:
     """`python3 chip_smoke.py --multichip` on a host of N > 1 GPUs: train.main
     on N NCCL processes against one, N NCCL ranks at DP_BATCH rows each
     against one process on the N x DP_BATCH batch, and eval over every
-    GPU against one; returns the kernel launches."""
+    GPU against one; then tensor parallelism: NCCL ranks at dp 2 x tp 2
+    and dp 1 x tp 4 (with N >= 4) against one process, and eval with the
+    model split over two GPUs; returns the kernel launches."""
     n = torch.cuda.device_count()
     if n < 2:
         raise AssertionError(f"--multichip needs 2 or more GPUs, found {n}")
@@ -2279,6 +2521,10 @@ def phase_multichip(dev, card: str, d: str) -> int:
     launches = dp_train(dev, card, d, n)
     launches += dp_ranks(dev, card, d, n, "nccl", DP_BATCH)
     launches += dp_eval(dev, card, ",".join(f"cuda:{i}" for i in range(n)))
+    if n >= 4:
+        launches += tp_ranks(dev, card, d, 4, 2, "nccl")
+        launches += tp_ranks(dev, card, d, 4, 4, "nccl")
+    launches += dp_eval(dev, card, "cuda:0,cuda:1", num_partitions=2)
     print(f"multichip phase, {n} GPUs [{card}]: "
           f"{time.perf_counter() - t0:.1f} s, fused_frontend launches "
           f"{launches}")
@@ -2673,6 +2919,7 @@ def main() -> int:
         launches += phase_recipe(dev, card)
         launches += phase_configs(dev, card, d)
         launches += phase_parallel(dev, card, d)
+        launches += phase_tensor_parallel(dev, card, d)
     launches += phase_chain(dev, card)
 
     print(json.dumps({"kernels": [{

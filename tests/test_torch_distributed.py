@@ -533,11 +533,16 @@ def test_sigterm_to_rank_1_stops_both_ranks_with_a_checkpoint(cli_dir):
     their signals (the first step, if rank 1 had not reached its own yet,
     else a multiple of 10), the primary saves, and both exit cleanly.  The waveform perturbations and SpecAugment run
     meanwhile."""
-    d = cli_dir
-    extra = ("--save_dir", f"{d}/model_term", "--epoch", "1",
+    _sigterm_to_rank_1(cli_dir, "model_term")
+
+
+def _sigterm_to_rank_1(d, name, *flags):
+    """The SIGTERM check above, the model in `d/name`, `flags` added to
+    both ranks' command lines."""
+    extra = ("--save_dir", f"{d}/{name}", "--epoch", "1",
              "--steps_per_epoch", "1000", "--online_speed_perturb", "True",
              "--online_volume_perturb", "True", "--online_noise_perturb",
-             "True", "--spec_augment", "True")
+             "True", "--spec_augment", "True") + flags
     procs = _spawn(_CLI, lambda r: _cli_argv(d, r, *extra))
     lines, started = [], threading.Event()
 
@@ -572,10 +577,10 @@ def test_sigterm_to_rank_1_stops_both_ranks_with_a_checkpoint(cli_dir):
     step = steps.pop()
     assert (step == 1 or step % 10 == 0) and step < 1000   # a logging step
     assert f"preemption checkpoint saved at step {step}" in out0
-    assert os.listdir(f"{d}/model_term").count("1.pt") == 1
+    assert os.listdir(f"{d}/{name}").count("1.pt") == 1
     # the checkpoint resumes on one process at the step it was cut
     ts, _ = train_cli.main(["--device", "cpu"] + cli_args(d) + [
-        "--save_dir", f"{d}/model_term", "--summary_dir", f"{d}/s_term",
+        "--save_dir", f"{d}/{name}", "--summary_dir", f"{d}/s_{name}",
         "--epoch", "1", "--steps_per_epoch", str(step + 1)])
     assert ts.step == step + 1
 

@@ -53,8 +53,12 @@ def test_make_mesh_shapes():
     assert make_mesh(num_devices=2, devices=[CPU] * 4).shape["data"] == 2
     assert devices_for("cpu,cpu") == [CPU, CPU]
     assert devices_for("cpu") == [CPU]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_mesh(devices=[CPU] * 4, num_partitions=2)
+    # a model axis of 2: two replicas, each split over two positions
+    split = make_mesh(devices=[CPU] * 4, num_partitions=2)
+    assert split.shape == {"data": 2, "model": 2} and split.size == 4
+    assert split.replica_devices() == [[CPU, CPU], [CPU, CPU]]
+    with pytest.raises(ValueError, match="4 devices not divisible by 3"):
+        make_mesh(devices=[CPU] * 4, num_partitions=3)
 
 
 def test_a_gpu_mesh_without_a_gpu_raises(monkeypatch):

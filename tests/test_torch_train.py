@@ -440,7 +440,8 @@ def test_unported_training_paths_raise(rng):
     for a, b in zip(ts.model.state_dict().values(),
                     ref.model.state_dict().values()):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # a model axis of 2 needs two positions: one device cannot hold it
+    with pytest.raises(ValueError, match="1 devices not divisible by 2"):
         make_mesh(devices=[CPU], num_partitions=2)
     with pytest.raises(ValueError, match="torchrun"):
         ttrainer.make_mesh_train_step(make_mesh(devices=[CPU, CPU]), ts,

@@ -90,10 +90,14 @@ def test_profile_dir_and_verbose_logging(tmp_path, rng):
 @pytest.mark.parametrize("flag,value,match", [
     ("--steps_per_dispatch", "2", "Not ported"),
     ("--recycle_after_steps", "5", "Not ported"),
-    ("--num_partitions", "2", "item 12"),
+    # tensor parallelism is ported, over one process per partition: in
+    # one process it is refused with the command that runs it
+    ("--num_partitions", "2", "torchrun --nproc_per_node 2"),
 ])
 def test_tpu_only_flags_are_refused(tmp_path, flag, value, match):
-    with pytest.raises(NotImplementedError, match=match):
+    error = (ValueError if flag == "--num_partitions"
+             else NotImplementedError)
+    with pytest.raises(error, match=match):
         train_cli.main(_args(str(tmp_path)) + [flag, value])
 
 
