@@ -49,16 +49,23 @@
 //     leaves a team without an item (serving's 8 x 2 s: 264 items of 6).
 //     With CMVN on, tiles wholly at or past featlen are skipped: their
 //     output is zero.
-//   - CMVN over the whole card: pass 1 writes each tile's masked count,
-//     mean and M2 per feature; pass 2 runs one block per (utterance, 19
-//     frames at D = 13), merges its utterance's partials in a fixed order
-//     with Chan's formula (deterministic, no atomics), normalizes its
-//     frames once into shared memory and writes [static, delta,
-//     delta-delta] as one coalesced run.
+//   - CMVN per utterance, independent of the batch: pass 1 writes raw
+//     features only.  The statistics kernel then runs one block of 1024
+//     threads per utterance: thread (g, d) sums frames g, g + G, ... of
+//     feature d below featlen (G = 1024 / D groups, 78 at D = 13), thread
+//     d adds the G sums in order, first for the mean, then for the
+//     centred squares.  That grid depends on D alone, so a row's features
+//     are bit-for-bit the same whatever its batch-mates, B, frames_max or
+//     pass 1's work item (the raw features of a frame do not depend on
+//     the item either), as the TPU kernel's are.  Pass 2 runs one block
+//     per (utterance, 19 frames at D = 13), normalizes its frames once
+//     into shared memory and writes [static, delta, delta-delta] as one
+//     coalesced run.
 //
 // C interface, loaded with ctypes (ops/cuda_frontend.py): one entry point,
-// asr_fused_frontend, that launches both passes and returns the
-// cudaError_t of its launches, 0 on success.
+// asr_fused_frontend, that launches pass 1 and, with CMVN on, the
+// statistics kernel and pass 2, and returns the cudaError_t of its
+// launches, 0 on success.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,6 +78,7 @@ constexpr int kTeamThreads = kThreads1 / kTeams;
 constexpr int kTeamWarps = kTeamThreads / 32;
 constexpr int kMaxMT = 2;                   // 16-row MMA tiles per item
 constexpr int kThreads2 = 256;              // pass-2 block; feat_dim <= 256
+constexpr int kThreadsStats = 1024;         // statistics block: one utterance
 constexpr float kEpsZero = 2.220446049250313e-16f;  // float64 eps (speechpy)
 // a mel sum or frame energy below the smallest normal float counts as zero
 // (as on the TPU, which flushes subnormals): the plain version's per-bin
@@ -88,7 +96,6 @@ struct Params {
   const float* melw;     // (nnz,)
   const float* dct;      // (F, D)
   float* raw;            // (B, T, D)
-  float* stats;          // (B, n_tiles, 3, D): count, mean, M2
   int B, S, T, fstride, nfft, slen, slen_pad, sstride, J, step, nbins, nb,
       ksup, F, D, nnz, dct_len, mfcc, cmvn, mt, tt, n_tiles, basis_in_smem;
 };
@@ -221,7 +228,7 @@ __device__ void stage_segments(const Params& p, float* seg, int lda,
   cp_async_commit();
 }
 
-// Pass 1: raw features (B, T, D) and per-tile CMVN partials.  Two teams of
+// Pass 1: raw features (B, T, D).  Two teams of
 // 256 threads per block share the constants and work on their own items,
 // so one team's CUDA-core phases overlap the other's tensor-core product.
 template <int MT>  // 16-row MMA tiles per work item (p.mt)
@@ -456,50 +463,8 @@ features_kernel(const Params p) {
     const int n_out = min(p.tt, p.T - t0) * p.D;
     float* rw = p.raw + (static_cast<size_t>(b) * p.T + t0) * p.D;
     for (int i = ttid; i < n_out; i += kTeamThreads) rw[i] = ft[i];
-    if (p.cmvn) {
-      // masked count, mean and M2 of this tile's frames < featlen: one
-      // warp per feature, lanes over frames, a fixed shuffle tree
-      const int n = clampi(clampi(p.featlen[b], 0, p.T) - t0, 0, p.tt);
-      float* st = p.stats +
-                  static_cast<size_t>(b * p.n_tiles + tile) * 3 * p.D;
-      for (int d = twarp; d < p.D; d += kTeamWarps) {
-        float s = 0.f;
-        for (int t = lane; t < n; t += 32) s += ft[t * p.D + d];
-        for (int o = 16; o > 0; o >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, o);
-        const float mean = n > 0 ? s / static_cast<float>(n) : 0.f;
-        float m2 = 0.f;
-        for (int t = lane; t < n; t += 32) {
-          const float c = ft[t * p.D + d] - mean;
-          m2 = fmaf(c, c, m2);
-        }
-        for (int o = 16; o > 0; o >>= 1)
-          m2 += __shfl_xor_sync(0xffffffffu, m2, o);
-        if (lane == 0) {
-          st[d] = static_cast<float>(n);
-          st[p.D + d] = mean;
-          st[2 * p.D + d] = m2;
-        }
-      }
-    }
     item = nxt;
   }
-}
-
-// Chan et al.'s pairwise update of (count, mean, M2) with another partial
-__device__ __forceinline__ void chan_merge(float& n, float& m, float& m2,
-                                           float nb, float mb, float m2b) {
-  if (nb == 0.f) return;
-  if (n == 0.f) {
-    n = nb;
-    m = mb;
-    m2 = m2b;
-    return;
-  }
-  const float nn = n + nb, delta = mb - m;
-  m = fmaf(delta, nb / nn, m);
-  m2 = m2 + m2b + delta * delta * (n * nb / nn);
-  n = nn;
 }
 
 // frames of one pass-2 block: its normalized rows fill kThreads2 values
@@ -515,43 +480,72 @@ __device__ __forceinline__ float delta_at(const float* x, int c, int D) {
          10.f;
 }
 
-// Pass 2: one block per (utterance, kThreads2 / D frames).  Merges the utterance's
-// pass-1 partials (population variance over the first featlen frames,
-// count floored at 1), normalizes its frames once into shared memory,
+// The statistics: one block per utterance.  Thread (g, d) sums frames g,
+// g + G, g + 2 G, ... < featlen of feature d (G = kThreadsStats / D), and
+// thread d adds the G group sums in order: first for the mean, then for
+// the centred squares (population variance, count floored at 1).  The
+// order depends on D and featlen alone, never on B, T or pass 1's tiling.
+// stats[b] = (mean, std + kEpsCmvn), each D values.
+__global__ void __launch_bounds__(kThreadsStats)
+cmvn_stats_kernel(const float* __restrict__ raw,
+                  const int* __restrict__ featlen, float* __restrict__ stats,
+                  int T, int D) {
+  __shared__ float part[kThreadsStats];
+  __shared__ float mean[kThreads2];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int groups = kThreadsStats / D, g = tid / D, d = tid - g * D;
+  const int n = clampi(featlen[b], 0, T);
+  const float count = fmaxf(static_cast<float>(n), 1.f);
+  const float* x = raw + static_cast<size_t>(b) * T * D + d;
+  float s = 0.f;
+  if (g < groups)
+#pragma unroll 8
+    for (int t = g; t < n; t += groups) s += x[static_cast<size_t>(t) * D];
+  part[tid] = s;
+  __syncthreads();
+  if (tid < D) {
+    float total = 0.f;
+    for (int q = 0; q < groups; ++q) total += part[q * D + tid];
+    mean[tid] = total / count;
+  }
+  __syncthreads();  // every read of part is done: it takes the squares
+  float m2 = 0.f;
+  if (g < groups) {
+    const float m = mean[d];
+#pragma unroll 8
+    for (int t = g; t < n; t += groups) {
+      const float c = x[static_cast<size_t>(t) * D] - m;
+      m2 = fmaf(c, c, m2);
+    }
+  }
+  part[tid] = m2;
+  __syncthreads();
+  if (tid < D) {
+    float total = 0.f;
+    for (int q = 0; q < groups; ++q) total += part[q * D + tid];
+    float* st = stats + static_cast<size_t>(b) * 2 * D;
+    st[tid] = mean[tid];
+    st[D + tid] = sqrtf(total / count) + kEpsCmvn;
+  }
+}
+
+// Pass 2: one block per (utterance, kThreads2 / D frames).  Normalizes the
+// block's frames by its utterance's statistics once into shared memory,
 // stacks [static, d, dd] on a trailing axis of 3 and zeroes frames
 // >= featlen; the block's output is one contiguous run, written coalesced.
 __global__ void __launch_bounds__(kThreads2)
 cmvn_deltas_kernel(const float* __restrict__ raw,
                    const int* __restrict__ featlen,
                    const float* __restrict__ stats, float* __restrict__ out,
-                   int T, int D, int tt1, int n_tiles1) {
-  __shared__ float pn[kThreads2], pm[kThreads2], pm2[kThreads2];
+                   int T, int D) {
   __shared__ float mean[kThreads2], den[kThreads2];
   __shared__ float v[3][kThreads2];  // normalized, d, dd of the frames
   const int b = blockIdx.y, tid = threadIdx.x;
   const int fl = clampi(featlen[b], 0, T);
-  const int n_valid = (fl + tt1 - 1) / tt1;
-  const int groups = blockDim.x / D, d = tid % D, g = tid / D;
-  const float* st = stats + static_cast<size_t>(b) * n_tiles1 * 3 * D;
-
-  // groups merge strided tiles, then thread d merges the groups in order
-  float n = 0.f, m = 0.f, m2 = 0.f;
-  if (g < groups)
-#pragma unroll 4
-    for (int i = g; i < n_valid; i += groups) {
-      const float* s = st + static_cast<size_t>(i) * 3 * D;
-      chan_merge(n, m, m2, s[d], s[D + d], s[2 * D + d]);
-    }
-  pn[tid] = n;
-  pm[tid] = m;
-  pm2[tid] = m2;
-  __syncthreads();
   if (tid < D) {
-    n = m = m2 = 0.f;
-    for (int q = 0; q < groups; ++q)
-      chan_merge(n, m, m2, pn[q * D + tid], pm[q * D + tid], pm2[q * D + tid]);
-    mean[tid] = m;
-    den[tid] = sqrtf(m2 / fmaxf(n, 1.f)) + kEpsCmvn;
+    const float* st = stats + static_cast<size_t>(b) * 2 * D;
+    mean[tid] = st[tid];
+    den[tid] = st[D + tid];
   }
   __syncthreads();
 
@@ -577,9 +571,10 @@ cmvn_deltas_kernel(const float* __restrict__ raw,
 
 // audio (B, S) f32; featlen (B,) i32; the plan's constants (basis, twiddle,
 // melptr, melbin, melw, dct); raw (B, T, D) f32 (the output when cmvn == 0);
-// stats (B, n_tiles, 3, D) f32 scratch and out (B, T, D, 3) f32 when
-// cmvn != 0.  The wrapper (ops/cuda_frontend.py) validates every shape and
-// pointer and picks the tiling and the shared memory (smem bytes).
+// stats (B, 2, D) f32 scratch (each utterance's mean and deviation) and out
+// (B, T, D, 3) f32 when cmvn != 0.  The wrapper (ops/cuda_frontend.py)
+// validates every shape and pointer and picks the tiling and the shared
+// memory (smem bytes).
 extern "C" int asr_fused_frontend(
     const float* audio, const int* featlen, const float* basis,
     const float* twiddle, const int* melptr, const int* melbin,
@@ -589,11 +584,11 @@ extern "C" int asr_fused_frontend(
     int nnz, int dct_len, int mfcc, int cmvn, int mt, int tt, int n_tiles,
     int basis_in_smem,
     int smem, int grid, void* stream) {
-  if (mt < 1 || mt > kMaxMT || D > kThreads2 || grid < 1)
+  if (mt < 1 || mt > kMaxMT || D < 1 || D > kThreads2 || grid < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Params p{audio, featlen, basis, twiddle, melptr, melbin, melw, dct,
-                 raw,   stats,   B,     S,       T,      fstride, nfft,
+                 raw,   B,       S,     T,       fstride, nfft,
                  slen,  slen_pad, sstride, J,    step,   nbins,  nb,
                  ksup,  F,       D,     nnz,     dct_len, mfcc,  cmvn,
                  mt,    tt,      n_tiles, basis_in_smem};
@@ -605,8 +600,11 @@ extern "C" int asr_fused_frontend(
   kernel<<<grid, kThreads1, smem, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess || !cmvn) return static_cast<int>(e);
+  cmvn_stats_kernel<<<B, kThreadsStats, 0, st>>>(raw, featlen, stats, T, D);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid2((T + frames2(D) - 1) / frames2(D), B);
   cmvn_deltas_kernel<<<grid2, kThreads2, 0, st>>>(raw, featlen, stats, out, T,
-                                                  D, tt, n_tiles);
+                                                  D);
   return static_cast<int>(cudaGetLastError());
 }

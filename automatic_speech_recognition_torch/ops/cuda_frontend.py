@@ -6,9 +6,14 @@ being frame-tiled, also its long-utterance route fused_frontend_chunked.
 `fused_frontend` launches it for a CUDA tensor, or raises; a CPU tensor
 goes to the plain version, ops/frontend.reference_features.
 
-`plan` builds the kernel's constants and `tiling` its work split, both in
-NumPy/Python, so that the CPU tests rehearse the kernel's arithmetic from
-the very same numbers (tests/test_torch_frontend.py).
+`plan` builds the kernel's constants and `tiling` pass 1's work split,
+`stats_groups` the statistics kernel's frame grid, all in NumPy/Python, so
+that the CPU tests rehearse the kernel's arithmetic from the very same
+numbers (tests/test_torch_frontend.py).  The work split follows the batch
+(B x frames) so that small batches fill the card; the statistics do not:
+one block per utterance sums its frames over a grid that depends on
+feat_dim alone, so a row's features are bit-for-bit the same whatever
+batch it shares.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,6 +34,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # feat_dim limit of the kernel's CMVN pass (one block of 256 threads)
 MAX_FEAT_DIM = 256
+# threads of the statistics kernel's block (one utterance)
+STATS_THREADS = 1024
 # subsegments a frame may span before the kernel takes whole frames
 MAX_SUBSEGMENTS = 16
 # shared memory one block of pass 1 may use (one 512-thread block per SM)
@@ -104,6 +111,26 @@ def pass2_frames(feat_dim: int) -> int:
     return 256 // feat_dim if feat_dim < 256 else 1
 
 
+def stats_groups(feat_dim: int) -> int:
+    """Frame groups of the statistics kernel: thread (g, d) of an
+    utterance's block sums frames g, g + G, ... of feature d, and thread d
+    adds the G sums in order.  G depends on feat_dim alone."""
+    return STATS_THREADS // feat_dim
+
+
+def buffers(B: int, T: int, feat_dim: int, apply_cmvn: bool,
+            device: torch.device):
+    """The kernel's raw features (B, T, D), statistics scratch and output
+    (B, T, D, 3) (the raw features themselves with cmvn off).  The
+    scratch holds each utterance's mean and deviation (std + 2^-30),
+    (B, 2, D): nothing in it depends on the tiling or frames_max."""
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=device)
+    raw = empty((B, T, feat_dim))
+    if not apply_cmvn:
+        return raw, empty((1,)), raw
+    return raw, empty((B, 2, feat_dim)), empty((B, T, feat_dim, 3))
+
+
 class Tiling(NamedTuple):
     mt: int            # 16-row MMA tiles of segments in one work item
     tt: int            # frames of one work item
@@ -132,23 +159,30 @@ def smem_bytes(p, mt: int, tt: int, feat_dim: int,
     return 4 * (consts + TEAMS * team)
 
 
-def tiling(p, B: int, T: int, num_sms: int, feat_dim: int) -> Tiling:
-    """The largest work item (mt 16-row tiles of segments, tt frames)
-    that fits in shared memory, with the basis there if any size allows,
-    and still gives each of the TEAMS of every SM one; the smallest one
-    when no size does."""
+def tiling_options(p, T: int, feat_dim: int) -> list:
+    """Every work item pass 1 can take (mt 16-row tiles of segments, tt
+    frames): those with the basis in shared memory first, each group
+    largest first."""
     options = []
-    for in_smem in (True, False):       # the basis in shared memory first
+    for in_smem in (True, False):
         for mt in range(MAX_ROW_TILES, 0, -1):
             tt = (16 * mt - p["J"]) // p["step"] + 1
             smem = smem_bytes(p, mt, tt, feat_dim, in_smem)
             if tt >= 1 and smem <= SMEM_LIMIT:
                 options.append(Tiling(mt, tt, -(-T // tt), in_smem, smem))
-        if options:
-            break
     if not options:
         raise ValueError("fused_frontend: this flen / fstride / fft_length "
                          "needs more shared memory than an SM has")
+    return options
+
+
+def tiling(p, B: int, T: int, num_sms: int, feat_dim: int) -> Tiling:
+    """The largest work item, with the basis in shared memory if any size
+    allows it, that still gives each of the TEAMS of every SM one; the
+    smallest one when none does."""
+    options = tiling_options(p, T, feat_dim)
+    options = [t for t in options
+               if t.basis_in_smem == options[0].basis_in_smem]
     for t in options:
         if B * t.n_tiles >= num_sms * TEAMS:
             return t
@@ -200,10 +234,13 @@ def _stream(device: torch.device) -> int:
 def fused_frontend(audio: torch.Tensor, featlen: torch.Tensor, *, flen: int,
                    fstride: int, fft_length: int, feat_dim: int,
                    feat_type: str, num_mel_filters: int, sample_rate: int,
-                   frames_max: int, apply_cmvn: bool) -> torch.Tensor:
+                   frames_max: int, apply_cmvn: bool,
+                   work_split: Optional[Tiling] = None) -> torch.Tensor:
     """(B, S) padded audio + (B,) int32 frame counts -> (B, frames_max, D, 3)
     CMVN'd delta-stacked features, or (B, frames_max, D) raw features with
-    cmvn off."""
+    cmvn off.  `work_split` forces pass 1's tiling (one of
+    `tiling_options`; None: `tiling`'s pick for this shape); the result
+    does not depend on it, which chip_smoke.py checks on the card."""
     kw = dict(flen=flen, fstride=fstride, fft_length=fft_length,
               feat_dim=feat_dim, feat_type=feat_type,
               num_mel_filters=num_mel_filters, sample_rate=sample_rate,
@@ -235,13 +272,12 @@ def fused_frontend(audio: torch.Tensor, featlen: torch.Tensor, *, flen: int,
            sample_rate)
     p = _device_plan(*key, audio.device)
     T, D = frames_max, feat_dim
-    tl = _device_tiling(key, B, T, audio.device)
+    if work_split is not None and work_split not in tiling_options(p, T, D):
+        raise ValueError(f"fused_frontend: {work_split} is not a work split "
+                         f"of this plan at frames_max {T}")
+    tl = work_split or _device_tiling(key, B, T, audio.device)
     lib = _lib()
-    raw = torch.empty((B, T, D), dtype=torch.float32, device=audio.device)
-    stats = torch.empty((B, tl.n_tiles, 3, D) if apply_cmvn else (1,),
-                        dtype=torch.float32, device=audio.device)
-    out = (torch.empty((B, T, D, 3), dtype=torch.float32, device=audio.device)
-           if apply_cmvn else raw)
+    raw, stats, out = buffers(B, T, D, apply_cmvn, audio.device)
     with torch.cuda.device(audio.device):
         rc = lib.asr_fused_frontend(
             audio.data_ptr(), featlen.data_ptr(), p["basis"].data_ptr(),

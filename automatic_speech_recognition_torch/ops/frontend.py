@@ -78,17 +78,28 @@ def _zero_handling(x: torch.Tensor) -> torch.Tensor:
     return x.masked_fill(x < FLT_MIN, EPS_ZERO)
 
 
+def _row_totals(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """(B, T, D), (B,) frame counts in [0, T] -> (B, 1, D): each row's sum
+    over its first n frames, read from a prefix sum along T (zero for
+    n = 0).  The prefix runs along the row in order, so the sum does not
+    depend on the frames past n, frames_max or the other rows."""
+    idx = (n - 1).clamp(min=0)[:, None, None].expand(-1, 1, x.shape[2])
+    total = torch.cumsum(x, 1).gather(1, idx)
+    return torch.where(n[:, None, None] > 0, total, torch.zeros_like(total))
+
+
 def masked_cmvn(feat: torch.Tensor, featlen: torch.Tensor) -> torch.Tensor:
     """Per-utterance CMVN over the first featlen frames: population std,
-    denominator std + 2^-30, count floored at 1."""
+    denominator std + 2^-30, count floored at 1.  A row's result does not
+    depend on its batch-mates or on frames_max."""
     T = feat.shape[1]
-    mask = (torch.arange(T, device=feat.device)[None, :]
-            < featlen[:, None]).to(feat.dtype)
-    n = mask.sum(1, keepdim=True).clamp(min=1.0)[..., None]
-    m3 = mask[..., None]
-    mean = (feat * m3).sum(1, keepdim=True) / n
+    n = featlen.to(feat.device).clamp(0, T).long()
+    m3 = (torch.arange(T, device=feat.device)[None, :]
+          < n[:, None]).to(feat.dtype)[..., None]
+    count = n.clamp(min=1).to(feat.dtype)[:, None, None]
+    mean = _row_totals(feat, n) / count
     centered = (feat - mean) * m3
-    var = (centered * centered).sum(1, keepdim=True) / n
+    var = _row_totals(centered * centered, n) / count
     return centered / (var.sqrt() + EPS_CMVN)
 
 

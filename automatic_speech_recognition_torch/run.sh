@@ -20,8 +20,10 @@
 #   automatic_speech_recognition_torch.parallel.launch --nproc_per_node
 #   <count>: torchrun --standalone, one process per GPU, exiting with the
 #   first failing rank's code, so 17 and 18 reach the supervisor); with
-#   one, plain python3 -m.  RUN_NPROC overrides the count (bucket batch
-#   sizes must divide by it).
+#   one, plain python3 -m on the first GPU.  RUN_NPROC overrides the
+#   count (bucket batch sizes must divide by it).  A RUN_DEVICE list
+#   (cuda:0,cuda:2) goes to train as it is, which starts a rank per
+#   device itself.
 set -euo pipefail
 
 stage="${1:-all}"
@@ -73,11 +75,12 @@ common_flags="--unit $unit --feat_type $feat_type --feat_dim $feat_dim \
 
 run_stage() { [[ "$stage" == "all" || "$stage" == "$1" ]]; }
 
-# the train stage's launcher: every local GPU (RUN_NPROC overrides)
+# the train stage's command and --device: plain cuda is every local GPU
+# (RUN_NPROC overrides the count; at 1, plain cuda is the first GPU)
 train_launcher() {
-  local nproc=${RUN_NPROC:-}
+  local nproc=${RUN_NPROC:-} dev=$device
   if [[ -z "$nproc" ]]; then
-    if [[ "$device" == cuda* ]]; then
+    if [[ "$device" == cuda ]]; then
       nproc=$(python3 -c "import torch; print(torch.cuda.device_count())")
     else
       nproc=1
@@ -85,9 +88,12 @@ train_launcher() {
   fi
   if (( nproc > 1 )); then
     echo python3 -m $port.parallel.launch \
-      --nproc_per_node "$nproc" -m $port.train
+      --nproc_per_node "$nproc" -m $port.train --device "$dev"
   else
-    echo python3 -m $port.train
+    if [[ "$dev" == cuda ]]; then
+      dev=cuda:0
+    fi
+    echo python3 -m $port.train --device "$dev"
   fi
 }
 
@@ -120,7 +126,7 @@ if run_stage train; then
   # supervised: retries stall-watchdog (17) and transient-platform (18)
   # exits, resuming from the last epoch checkpoint
   $repo/$port/tools/train_supervised.sh 24 -- \
-    $(train_launcher) --device $device $common_flags --epoch $epoch \
+    $(train_launcher) $common_flags --epoch $epoch \
       --scheduled_sampling False --scan_unroll 4 --stall_timeout_s 900
 fi
 
@@ -129,7 +135,7 @@ fi
 if [[ "$stage" == "train_rec" ]]; then
   echo "=== stage: train LAS, recommended joint-CTC recipe ==="
   $repo/$port/tools/train_supervised.sh 24 -- \
-    $(train_launcher) --device $device $common_flags --epoch $epoch \
+    $(train_launcher) $common_flags --epoch $epoch \
       --scheduled_sampling False --ctc True --ctc_weight 0.2 \
       --scan_unroll 4 --stall_timeout_s 900
 fi

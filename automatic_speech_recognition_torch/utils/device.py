@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import argparse
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +34,17 @@ def split_device(argv: Optional[Sequence[str]]) -> Tuple[str, List[str]]:
     pre.add_argument("--device", default="cuda")
     ns, rest = pre.parse_known_args(argv)
     return ns.device, rest
+
+
+def cuda_visible(indices: Sequence[int]) -> str:
+    """CUDA_VISIBLE_DEVICES for a child process that is to see this
+    process's GPUs `indices` (torch's numbering here), in that order:
+    mapped through the CUDA_VISIBLE_DEVICES this process was given, if
+    any (its entries are ids or UUIDs, the i-th being cuda:i here)."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = ([v.strip() for v in visible.split(",")] if visible is not None
+           else [str(i) for i in range(max(indices) + 1)])
+    return ",".join(ids[i] for i in indices)
 
 
 def disable_tf32() -> None:

@@ -10,15 +10,21 @@
    with ragged and sub-frame rows; B = 1 at 5 s and at 60 s; frame counts
    on and between the kernel's tile edges; a batch whose rows are all
    shorter than one tile; frames of subnormal energy; an odd subsegment
-   (15 kHz) and whole frames (11025 Hz).  Then to the NumPy speechpy golden on synthesized speech
-   (5e-3).  Counts the HMMA (tensor-core) instructions of the built
-   library (cuobjdump -sass).  Times the kernel, the previous kernel
-   (built from a scratch copy of its source at BASELINE_SOURCE, when one
-   is there) and the plain version in turns at 128 x 10 s and the serving
-   and training shapes, each beside its bound; each pass's device time at
-   8 x 32 s from a torch.profiler trace; and torch.stft's power spectrum
-   of the same frames at 128 x 10 s, a yardstick for the spectrum stage
-   only.
+   (15 kHz) and whole frames (11025 Hz).  Holds the raw features and the
+   whole output to be bit-equal under every work split pass 1 can take,
+   and each of 12 seeded rows (one below a frame, one of 60 s) to equal
+   itself alone, bit for bit, in batches of 2, 4, 8 and 128 beside other
+   rows and other frames_max (mfcc and fbank; the 128-row batch also
+   against the plain version).  Then to the NumPy speechpy golden on
+   synthesized speech (5e-3).  Counts the HMMA (tensor-core)
+   instructions of the built library (cuobjdump -sass).  Times the
+   kernel, the previous kernel (built from a scratch copy of its source
+   at BASELINE_SOURCE, when one is there) and the plain version in turns
+   at 128 x 10 s and the serving and training shapes, each beside its
+   bound; each kernel's device time (pass 1, the statistics, pass 2) at
+   128 x 10 s and 8 x 2 s from a torch.profiler trace; and torch.stft's
+   power spectrum of the same frames at 128 x 10 s, a yardstick for the
+   spectrum stage only.
 3. Serves >= 12 concurrent synthesized requests through
    BatchingRecognizer at the published width (run.sh: cnn listener
    4 x 512, location attention 128 / K 201 / 10 channels, speller
@@ -121,7 +127,7 @@
      devices from the pool, the workers' start-up seconds, greedy tokens
      and beam-8 joint-CTC rank 0 against one device on 8 utterances (the
      batch's rows split over the workers), the workers' own features
-     against the first device's (1e-5), 7 requests padded to the data
+     against the first device's (equal), 7 requests padded to the data
      axis, featurized and decoded in the workers, against one device's
      texts, the split batch's wall ms each way, and test.py's
      whole-batch loop (featurize + greedy, one batch in flight per
@@ -173,7 +179,12 @@ counted in their processes).  Without CUDA it exits non-zero.
 
 runs only the data-parallel checks across N GPUs (phase_multichip):
 train.main on N NCCL processes against one process on the same 8 s x 48
-global batches, N NCCL ranks of 48 rows each against one process on the
+global batches; one `python3 -m automatic_speech_recognition_torch.train
+--device cuda` over every GPU (train starts the ranks itself), whose
+losses must equal, bit for bit, those of N hand-launched processes on the
+same flags (both with deterministic CUDA algorithms), and the same
+command with rank 1 exiting 18, which must exit 18; N NCCL ranks of 48
+rows each against one process on the
 N x 48 batch (with the NCCL all-reduce's ms and each rank's ms per step
 against one process's at 48 rows), and decoding over plain 'cuda' (it
 must resolve to every GPU; one worker process per GPU) against one GPU:
@@ -450,6 +461,118 @@ def kernel_cases(dev, rng) -> float:
     return worst
 
 
+# rows the batch-invariance check features alone and in batches: one below
+# a frame (featlen 0), the serving and training lengths, and 60 s
+INVARIANCE_SECONDS = (0.02, 0.9, 1.7, 2.0, 3.3, 4.1, 6.5, 8.0, 10.0, 12.7,
+                      16.0, 60.0)
+INVARIANCE_BATCHES = (2, 4, 8, 128)
+
+
+def batch_features(dev, sigs: list, feat_type: str, extra: int = 0):
+    """The kernel's features of `sigs` (NumPy rows) as one batch padded
+    with zeros to the longest row + `extra` samples: (B, T, 13, 3) and
+    the frame counts."""
+    audio = np.zeros((len(sigs), max(map(len, sigs)) + extra), np.float32)
+    for r, x in enumerate(sigs):
+        audio[r, :len(x)] = x
+    return frontend.extract_features(
+        torch.from_numpy(audio).to(dev),
+        torch.tensor([len(x) for x in sigs], device=dev), use_kernel=True,
+        feat_dim=13, feat_type=feat_type)
+
+
+def batch_invariance(dev, rng, card: str) -> float:
+    """The seeded rows of INVARIANCE_SECONDS featurized alone (B = 1),
+    then at each B of INVARIANCE_BATCHES: in random order, cut into
+    batches of B filled up with fresh rows of 0.5-16 s at random places,
+    each padded by a further 0-2 s (frames_max differs); every row must
+    equal itself alone bit for bit.  The 128-row batch is also held to
+    the plain version.  Returns the largest difference (0)."""
+    rows = [(rng.standard_normal(max(int(t * SR), 1)) * 0.1)
+            .astype(np.float32) for t in INVARIANCE_SECONDS]
+    worst = 0.0
+    for feat_type in ("mfcc", "fbank"):
+        alone = []
+        for x in rows:
+            f, l = batch_features(dev, [x], feat_type)
+            alone.append(f[0, :int(l[0])])
+        for B in INVARIANCE_BATCHES:
+            order = list(rng.permutation(len(rows)))
+            diffs, frames = [0.0] * len(rows), []
+            for start in range(0, len(rows), B):
+                idx = order[start:start + B]
+                mates = [(rng.standard_normal(int(rng.uniform(0.5, 16) * SR))
+                          * 0.1).astype(np.float32)
+                         for _ in range(B - len(idx))]
+                place = list(rng.permutation(B))
+                sigs = [None] * B
+                for k, x in enumerate([rows[i] for i in idx] + mates):
+                    sigs[place[k]] = x
+                f, l = batch_features(dev, sigs, feat_type,
+                                      int(rng.integers(0, 2 * SR)))
+                frames.append(f.shape[1])
+                for k, i in enumerate(idx):
+                    got = f[place[k], :int(l[place[k]])]
+                    if got.shape != alone[i].shape:
+                        raise AssertionError(
+                            f"batch invariance {feat_type} B={B}: row {i} "
+                            f"has {got.shape[0]} frames, alone "
+                            f"{alone[i].shape[0]}")
+                    diffs[i] = float((got - alone[i]).abs().max()) \
+                        if got.numel() else 0.0
+                    if not torch.equal(got, alone[i]):
+                        raise AssertionError(
+                            f"batch invariance {feat_type} B={B}: row {i} "
+                            f"({INVARIANCE_SECONDS[i]} s) differs from "
+                            f"itself alone by {diffs[i]:.3e}")
+                if B == 128 and feat_type == "mfcc":
+                    audio = torch.zeros((B, max(map(len, sigs))),
+                                        device=dev)
+                    for r, x in enumerate(sigs):
+                        audio[r, :len(x)] = torch.from_numpy(x).to(dev)
+                    worst = max(worst, kernel_vs_plain(
+                        dev, audio, torch.tensor([len(x) for x in sigs],
+                                                 device=dev),
+                        "B=128 with a 60 s row"))
+            print(f"batch invariance {feat_type} [{card}]: B={B}, "
+                  f"frames_max {frames}: max abs diff of each row vs "
+                  f"itself alone {diffs}")
+    return worst
+
+
+def every_work_split(dev, rng, card: str) -> None:
+    """Pass 1's raw features (cmvn off) and the whole output (cmvn on)
+    under every work split the plan allows (mt 2 and 1, the basis in
+    shared or global memory) must be bit-equal: a frame's arithmetic does
+    not depend on the work item it falls in."""
+    p = cuda_frontend.plan(400, 160, 512, 13, "mfcc", 40, SR)
+    flen, fstride = host.frame_params(SR, 25, 10)
+    for name, B, S, lens in (
+            ("8 x 4 s ragged", 8, 4 * SR, [4 * SR] * 5 + [3 * SR, 9000, 300]),
+            ("1 x 60 s", 1, 60 * SR, [60 * SR]),
+            ("128 x 10 s", 128, 10 * SR, [10 * SR] * 128)):
+        T = host.num_frames(S, flen, fstride)
+        audio = noise(rng, B, S, dev)
+        featlen = torch.tensor([(n - flen) // fstride for n in lens],
+                               dtype=torch.int32, device=dev).clamp(0, T)
+        splits = cuda_frontend.tiling_options(p, T, 13)
+        for cmvn in (False, True):
+            outs = [cuda_frontend.fused_frontend(
+                audio, featlen, flen=flen, fstride=fstride, fft_length=512,
+                feat_dim=13, feat_type="mfcc", num_mel_filters=40,
+                sample_rate=SR, frames_max=T, apply_cmvn=cmvn,
+                work_split=tl) for tl in splits]
+            diffs = [float((o - outs[0]).abs().max()) for o in outs]
+            print(f"work splits (mt, tt, basis in shared memory), {name}, "
+                  f"cmvn={cmvn} [{card}]: max abs diff vs "
+                  f"{splits[0][:2] + splits[0][3:4]}: "
+                  + ", ".join(f"{tl[:2] + tl[3:4]} {d:.3e}"
+                              for tl, d in zip(splits[1:], diffs[1:])))
+            if not all(torch.equal(o, outs[0]) for o in outs):
+                raise AssertionError(f"work splits, {name}, cmvn={cmvn}: "
+                                     f"outputs differ by {max(diffs)}")
+
+
 def golden(dev, rng) -> None:
     """The kernel against the speechpy golden (float64 NumPy) on
     synthesized speech."""
@@ -475,30 +598,35 @@ def golden(dev, rng) -> None:
 def baseline_kernel(dev):
     """The previous kernel, built from a scratch copy of its source when
     one lies at BASELINE_SOURCE (never committed), for timing in turns
-    with the new one; None without it."""
+    with the new one; None without it.  It takes the wrapper's arguments
+    (mfcc 13 + CMVN) with its per-tile CMVN partials, (B, n_tiles, 3, D),
+    as the statistics scratch."""
     if not BASELINE_SOURCE.exists():
         print(f"previous kernel: not timed (no source at {BASELINE_SOURCE})")
         return None
     lib = _kernels.load("fused_frontend_baseline", BASELINE_SOURCE)
     fn = lib.asr_fused_frontend
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 \
-        + [ctypes.c_void_p]
+    fn.argtypes = cuda_frontend.ARGTYPES["asr_fused_frontend"]
     fn.restype = ctypes.c_int
-    p = cuda_frontend.plan(400, 160, 512, 13, "mfcc", 40, SR)
-    ang = 2.0 * np.pi * np.arange(512) / 512
-    consts = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
-              for a in (np.stack([np.cos(ang), np.sin(ang)], 1), p["mel"],
-                        p["dct"])]
-    bins = torch.from_numpy(p["bins"]).to(dev)
+    p = cuda_frontend._device_plan(400, 160, 512, 13, "mfcc", 40, SR, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def run(audio, featlen, T):
         B, S = audio.shape
+        tl = cuda_frontend.tiling(p, B, T, sms, 13)
         raw = torch.empty((B, T, 13), device=dev)
+        stats = torch.empty((B, tl.n_tiles, 3, 13), device=dev)
         out = torch.empty((B, T, 13, 3), device=dev)
-        rc = fn(audio.data_ptr(), featlen.data_ptr(), bins.data_ptr(),
-                *(c.data_ptr() for c in consts), raw.data_ptr(),
-                out.data_ptr(), B, S, T, 400, 160, 512, len(p["bins"]),
-                p["ksup"], p["F"], 13, 1, 1,
+        consts = [p[k].data_ptr() for k in ("basis", "twiddle", "melptr",
+                                            "melbin", "melw", "dct")]
+        rc = fn(audio.data_ptr(), featlen.data_ptr(), *consts,
+                raw.data_ptr(), stats.data_ptr(), out.data_ptr(), B, S, T,
+                160, 512, *(p[k] for k in ("slen", "slen_pad", "sstride", "J",
+                                           "step", "nbins", "nb", "ksup",
+                                           "F")),
+                13, len(p["melw"]), len(p["dct"]), 1, 1, tl.mt, tl.tt,
+                tl.n_tiles, int(tl.basis_in_smem), tl.smem,
+                min(-(-B * tl.n_tiles // cuda_frontend.TEAMS), sms),
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"previous kernel launch failed: {rc}")
@@ -560,6 +688,8 @@ def phase_kernel(dev, card: str) -> dict:
     yardstick, the HMMA count; returns the kernel line's numbers."""
     rng = np.random.default_rng(0)
     worst = kernel_cases(dev, rng)
+    every_work_split(dev, rng, card)
+    worst = max(worst, batch_invariance(dev, rng, card))
     golden(dev, rng)
     hmma = hmma_count()
     print(f"HMMA instructions in the built fused_frontend library: {hmma}")
@@ -599,23 +729,30 @@ def phase_kernel(dev, card: str) -> dict:
                          bound_ms=b_ms, bound_by=b_by)
         del audio, fns, want
 
-    # each pass's device time at serving's 8 x 32 s, from a trace of
-    # whole calls
-    S = 32 * SR
-    T = host.num_frames(S, 400, 160)
-    audio = noise(rng, 8, S, dev)
-    featlen = torch.full((8,), T, dtype=torch.int32, device=dev)
-    t = kernel_ms(lambda: cuda_frontend.fused_frontend(
-        audio, featlen, flen=400, fstride=160, fft_length=512, feat_dim=13,
-        feat_type="mfcc", num_mel_filters=40, sample_rate=SR, frames_max=T,
-        apply_cmvn=True), ("features_kernel", "cmvn_deltas_kernel"))
-    pass2_ms = t["cmvn_deltas_kernel"]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    print(f"device time per launch at 8 x 32 s (torch.profiler, 20 calls) "
-          f"[{card}]: pass 2 (CMVN + deltas) {pass2_ms:.4f} ms, "
-          f"{-(-T // cuda_frontend.pass2_frames(13))} blocks per utterance; "
-          f"pass 1 {t['features_kernel']:.4f} ms, tiling "
-          f"{cuda_frontend.tiling(p, 8, T, sms, 13)}")
+    # each kernel's device time at 128 x 10 s and serving's 8 x 2 s, from
+    # a trace of whole calls, the previous kernel's beside it
+    passes = {}
+    names = ("features_kernel", "cmvn_stats_kernel", "cmvn_deltas_kernel")
+    for name, B, S in TIMED_SHAPES[:2]:
+        T = host.num_frames(S, 400, 160)
+        audio = noise(rng, B, S, dev)
+        featlen = torch.full((B,), T, dtype=torch.int32, device=dev)
+        t = kernel_ms(lambda: cuda_frontend.fused_frontend(
+            audio, featlen, flen=400, fstride=160, fft_length=512,
+            feat_dim=13, feat_type="mfcc", num_mel_filters=40,
+            sample_rate=SR, frames_max=T, apply_cmvn=True), names)
+        t_old = (kernel_ms(lambda: old(audio, featlen, T),
+                           (names[0], names[2])) if old else None)
+        passes[name] = t
+        old_txt = (f"; previous kernel: pass 1 {t_old[names[0]]:.4f} ms, "
+                   f"pass 2 with the partials' merge {t_old[names[2]]:.4f} "
+                   "ms" if t_old else "")
+        print(f"device time per launch at {name} (torch.profiler, 20 "
+              f"calls) [{card}]: pass 1 {t[names[0]]:.4f} ms, statistics "
+              f"{t[names[1]]:.4f} ms, pass 2 (normalize + deltas) "
+              f"{t[names[2]]:.4f} ms, "
+              f"{-(-T // cuda_frontend.pass2_frames(13))} blocks per "
+              f"utterance{old_txt}")
 
     # yardstick for the spectrum stage only: torch.stft's power spectrum
     # of the same frames at 128 x 10 s (a 400-sample ones window centred
@@ -640,8 +777,7 @@ def phase_kernel(dev, card: str) -> dict:
           f"computes the whole function)")
     main = res[TIMED_SHAPES[0][0]]
     return dict(max_abs_err=worst, **main, share=main["bound_ms"] / main["ms"],
-                pass2_ms=pass2_ms, stft_ms=stft_ms, hmma=hmma,
-                shapes=res)
+                passes=passes, stft_ms=stft_ms, hmma=hmma, shapes=res)
 
 
 class CheckedRecognizer(Recognizer):
@@ -805,9 +941,10 @@ def run_train_cli(shard_dir: str, save_dir: str, epoch: int,
     returns its fused-kernel launches and its final state."""
     before = cuda_frontend.fused_frontend.launches
     ts, hist = train_cli.main(
-        base + ["--shard_dir", shard_dir, "--save_dir", save_dir,
-                "--summary_dir", os.path.join(save_dir, "summary"),
-                "--epoch", str(epoch)] + extra)
+        ["--device", "cuda:0"] + base + [
+            "--shard_dir", shard_dir, "--save_dir", save_dir,
+            "--summary_dir", os.path.join(save_dir, "summary"),
+            "--epoch", str(epoch)] + extra)
     torch.cuda.synchronize()
     launches = cuda_frontend.fused_frontend.launches - before
     steps = len(hist["loss"])
@@ -1534,8 +1671,9 @@ def phase_recipe(dev, card: str) -> int:
                   f"{sorted(os.listdir(f'{root}/shards_{kind}'))}")
         shard_flags = flags + ["--shard_dir", f"{root}/shards_raw"]
 
+        # cuda:0: this process trains (plain cuda is every GPU)
         (ts, hist), n = launched(lambda: train_cli.main(
-            ["--device", dev.type] + shard_flags + RECIPE_AUG
+            ["--device", f"{dev.type}:0"] + shard_flags + RECIPE_AUG
             + ["--epoch", "1", "--steps_per_epoch", "3"]))
         launches += n
         if ts.step != 3 or not np.all(np.isfinite(hist["loss"])) or n < 3:
@@ -2082,21 +2220,22 @@ def dp_rank(path: str, backend: str) -> dict:
 
 
 def spawn_ranks(code: str, args: list, world: int, local_rank=None,
-                timeout: float = 300.0) -> list:
+                timeout: float = 300.0, env: dict = None) -> list:
     """`world` processes of `code` with torchrun's variables set by hand
-    (LOCAL_RANK local_rank(r), default r), from the repository root;
-    returns each one's RESULT object and its output.  Every process is
-    waited for or killed."""
+    (LOCAL_RANK local_rank(r), default r) over `env` (default this
+    process's), from the repository root; returns each one's RESULT
+    object and its output.  Every process is waited for or killed."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = str(s.getsockname()[1])
     procs = []
     for r in range(world):
-        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
-                   LOCAL_RANK=str(r if local_rank is None else local_rank(r)),
-                   MASTER_ADDR="localhost", MASTER_PORT=port)
+        rank_env = dict(env or os.environ, RANK=str(r),
+                        WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                        LOCAL_RANK=str(r if local_rank is None
+                                       else local_rank(r)), MASTER_PORT=port)
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", code, *args], env=env,
+            [sys.executable, "-c", code, *args], env=rank_env,
             cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     try:
@@ -2124,14 +2263,20 @@ def steps_per_sec(out: str) -> float:
     return float(hits[-1])
 
 
+def dp_flags(d: str) -> list:
+    """The published train flags over the 8 s x 48 global batches of the
+    shards in d, DP_STEPS steps."""
+    flags = with_flags(PUBLISHED_FLAGS, bucket_boundaries_train=DP_FRAMES)
+    return flags + ["--shard_dir", d, "--bucket_batch_sizes", str(DP_BATCH),
+                    "--epoch", "1", "--steps_per_epoch", str(DP_STEPS)]
+
+
 def dp_train(dev, card: str, d: str, world: int) -> int:
     """train.main on `world` processes given torchrun's environment (NCCL,
     one GPU each; WORLD_SIZE 1 on one card) over the 8 s x 48 global
     batches, against the same steps in this process without it: the
     losses and ms per step."""
-    flags = with_flags(PUBLISHED_FLAGS, bucket_boundaries_train=DP_FRAMES)
-    flags += ["--shard_dir", d, "--bucket_batch_sizes", str(DP_BATCH),
-              "--epoch", "1", "--steps_per_epoch", str(DP_STEPS)]
+    flags = dp_flags(d)
     t0 = time.perf_counter()
     ranks = spawn_ranks(TRAIN_WORKER, flags + [
         "--save_dir", os.path.join(d, f"dp_world{world}"),
@@ -2151,7 +2296,8 @@ def dp_train(dev, card: str, d: str, world: int) -> int:
     logging.getLogger("train").addHandler(handler)
     cuda_frontend.fused_frontend.launches = 0
     try:
-        ts, hist = train_cli.main(flags + [
+        # cuda:0: one process (plain cuda is every GPU)
+        ts, hist = train_cli.main(["--device", "cuda:0"] + flags + [
             "--save_dir", os.path.join(d, f"dp_plain{world}"),
             "--summary_dir", os.path.join(d, f"dp_plain{world}_summary")])
     finally:
@@ -2174,6 +2320,114 @@ def dp_train(dev, card: str, d: str, world: int) -> int:
           f"steps (first {rel[0]:.2e}); fused_frontend launches "
           f"{sum(r['launches'] for r, _ in ranks)} + {launches}")
     return sum(r["launches"] for r, _ in ranks) + launches
+
+
+# the ranks of direct_train's runs: deterministic CUDA algorithms
+# (PyTorch's own, cuDNN's; cuBLAS's fixed workspace comes from the
+# environment), so that two runs of the same steps give the same bits
+# (without them, two runs part after the first step); with
+# CHIP_SMOKE_FAULT, rank 1 exits with it at its first logging step's flag
+# exchange, at once (os._exit: leaving through sys.exit, it sat in its
+# NCCL teardown until the other ranks woke), and the other ranks wait
+# there for torchrun's SIGTERM with its default action (train's handler
+# would defer it)
+RANK_SITE = r"""
+import os, signal, time
+if "RANK" in os.environ:
+    import torch
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+if "RANK" in os.environ and os.environ.get("CHIP_SMOKE_FAULT"):
+    from automatic_speech_recognition_torch.parallel import distributed
+
+    def fault(*args, **kwargs):
+        if os.environ["RANK"] == "1":
+            os._exit(int(os.environ["CHIP_SMOKE_FAULT"]))
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        time.sleep(600)
+
+    distributed.any_flag = fault
+"""
+
+
+def run_command(cmd: list, env: dict, timeout: float) -> tuple:
+    """(exit code, output) of a command run from the repository root; on
+    a timeout it is sent SIGTERM (torchrun passes it on to its ranks),
+    then killed, and the timeout raises."""
+    proc = subprocess.Popen(cmd, env=env, cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+        return proc.returncode, out
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+        raise
+
+
+def direct_train(card: str, d: str, n: int) -> int:
+    """One `python3 -m automatic_speech_recognition_torch.train --device
+    cuda` on a host of n GPUs: train starts a rank per GPU itself
+    (parallel/launch.py) and becomes their launcher.  Its losses must
+    equal, bit for bit, those of n hand-launched ranks (spawn_ranks) on
+    the same flags, both under RANK_SITE's deterministic algorithms; then
+    the same command with rank 1 exiting 18 at its first logging step
+    must exit 18.  Returns the hand-launched ranks' kernel launches."""
+    flags = dp_flags(d)
+    cmd = [sys.executable, "-m", train_cli.MODULE, "--device", "cuda",
+           *flags]
+    history = os.path.join(d, "direct_history.json")
+    with tempfile.TemporaryDirectory() as site:
+        Path(site, "sitecustomize.py").write_text(RANK_SITE)
+        path = os.environ.get("PYTHONPATH")
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                   PYTHONPATH=site + (os.pathsep + path if path else ""))
+        ranks = spawn_ranks(TRAIN_WORKER, flags + [
+            "--save_dir", os.path.join(d, "direct_ranks"), "--summary_dir",
+            os.path.join(d, "direct_ranks_summary")], n, env=env)
+        want = ranks[0][0]["loss"]
+        t0 = time.perf_counter()
+        code, out = run_command(cmd + [
+            "--save_dir", os.path.join(d, "direct"), "--summary_dir",
+            os.path.join(d, "direct_summary")],
+            dict(env, **{train_cli.HISTORY_ENV: history}), 900)
+        wall = time.perf_counter() - t0
+        mesh = f"mesh: {{'data': {n}, 'model': 1}} over {n} processes, " \
+            "backend nccl"
+        if code != 0 or mesh not in out:
+            raise AssertionError(f"train --device cuda exited {code}, or "
+                                 f"its log lacks {mesh!r}:\n{out[-6000:]}")
+        with open(history) as f:
+            got = json.load(f)["loss"]
+        rel = np.abs(np.array(got) / np.array(want) - 1)
+        print(f"train --device cuda, one command over {n} GPUs [{card}]: "
+              f"{mesh}; deterministic algorithms: its {len(got)} losses vs "
+              f"{n} hand-launched ranks' max rel diff {rel.max():.3e} "
+              f"(bit-equal: {got == want}); {wall:.1f} s wall with start-up")
+        if got != want:
+            raise AssertionError(f"one command's losses {got} != the "
+                                 f"ranks' {want}")
+        t0 = time.perf_counter()
+        code, out = run_command(cmd + [
+            "--save_dir", os.path.join(d, "direct_fault"), "--summary_dir",
+            os.path.join(d, "direct_fault_summary")],
+            dict(env, CHIP_SMOKE_FAULT="18"), 900)
+    report = re.search(r"rank\s*: 1 \(local_rank: 1\)\s*\n\s*exitcode\s*: "
+                       r"18", out)
+    print(f"train --device cuda over {n} GPUs with rank 1 exiting 18 at "
+          f"its first logging step [{card}]: the command exited {code} in "
+          f"{time.perf_counter() - t0:.1f} s; torchrun's report names rank "
+          f"1: {bool(report)}")
+    if code != 18 or not report:
+        raise AssertionError(f"an 18 on rank 1 came back as {code}:\n"
+                             f"{out[-6000:]}")
+    return sum(r["launches"] for r, _ in ranks)
 
 
 def dp_ranks(dev, card: str, d: str, world: int, backend: str,
@@ -2232,7 +2486,9 @@ def dp_ranks(dev, card: str, d: str, world: int, backend: str,
 
 LOOP_BATCHES = 4                 # whole batches a replica in one loop
 LOOP_ROUNDS = 2                  # (one, many) and (many, one) rounds
-FEAT_TOL = 1e-5                  # a replica's features vs the first device's
+# a replica's features vs the first device's: equal, since a row's
+# features do not depend on its batch (ops/cuda_frontend.py)
+FEAT_TOL = 0.0
 
 
 def eval_recognizers(dev, name: str, num_partitions: int = 1):
@@ -2773,7 +3029,9 @@ def phase_tensor_parallel(dev, card: str, d: str) -> int:
 
 def phase_multichip(dev, card: str, d: str) -> int:
     """`python3 chip_smoke.py --multichip` on a host of N > 1 GPUs: train.main
-    on N NCCL processes against one, N NCCL ranks at DP_BATCH rows each
+    on N NCCL processes against one, one `train --device cuda` command
+    over every GPU against those N processes (direct_train), N NCCL ranks
+    at DP_BATCH rows each
     against one process on the N x DP_BATCH batch, and eval over plain
     'cuda' (every GPU, a worker process each) against one GPU, raising
     unless its whole-batch loop beats one GPU's rows per second; then
@@ -2790,6 +3048,7 @@ def phase_multichip(dev, card: str, d: str) -> int:
           f"{', '.join(map(str, every))}")
     t0 = time.perf_counter()
     launches = dp_train(dev, card, d, n)
+    launches += direct_train(card, d, n)
     launches += dp_ranks(dev, card, d, n, "nccl", DP_BATCH)
     launches += dp_eval(dev, card, "cuda", require_faster=True)
     if n >= 4:
@@ -3201,8 +3460,9 @@ def main() -> int:
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "share": k["share"], "library_ms": None,
         "previous_ms": k["old_ms"], "stft_spectrum_ms": k["stft_ms"],
-        "pass2_ms_8x32s": k["pass2_ms"], "hmma": k["hmma"],
-        "card": card}]}))
+        "ms_8x2s": k["shapes"][TIMED_SHAPES[1][0]]["ms"],
+        "previous_ms_8x2s": k["shapes"][TIMED_SHAPES[1][0]]["old_ms"],
+        "pass_ms": k["passes"], "hmma": k["hmma"], "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

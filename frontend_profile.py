@@ -35,7 +35,7 @@ from automatic_speech_recognition_torch.ops import frontend_host as host
 from chip_smoke import ATOL, RTOL, cuda_ms, kernel_ms
 
 PHASES = ["wait", "stage next", "split", "mma", "combine", "mel", "dct",
-          "raw+stats"]
+          "raw"]
 # source line that starts each phase after the first (the loop head)
 MARKS = ["    float* seg = buf ? seg1 : seg0;\n",
          "    // split each sample once",
@@ -54,8 +54,7 @@ DROP = {"split": ("    for (int h = twarp; h < rows; h += kTeamWarps) {",
         "combine": ("    if (gk.row < gk.par)", "    if (gk.row < 0)"),
         "mel": ("    if (gf.row < gf.par)", "    if (gf.row < 0)"),
         "dct": ("      if (gd.row < gd.par)", "      if (gd.row < 0)"),
-        "stats": ("    if (p.cmvn) {\n      // masked",
-                  "    if (p.cmvn < 0) {\n      // masked")}
+        "statistics": ("  cmvn_stats_kernel<<<", "  if (0) cmvn_stats_kernel<<<")}
 # the 3xTF32 products chained through the tensor cores' f32 accumulator,
 # instead of a fresh fragment per k-step added on the CUDA cores
 CHAINED = (
@@ -184,9 +183,11 @@ def main() -> int:
         print(f"{k:20s} {ms:.4f} ms (runs {[round(x, 4) for x in v]}), "
               f"{base - ms:+.4f} ms against the kernel")
     cf._lib = lambda: libs["kernel"]
-    t = kernel_ms(run, ("features_kernel", "cmvn_deltas_kernel"))
+    t = kernel_ms(run, ("features_kernel", "cmvn_stats_kernel",
+                        "cmvn_deltas_kernel"))
     print(f"device time per launch at 128 x 10 s (torch.profiler): pass 1 "
-          f"{t['features_kernel']:.4f} ms, pass 2 "
+          f"{t['features_kernel']:.4f} ms, statistics "
+          f"{t['cmvn_stats_kernel']:.4f} ms, pass 2 "
           f"{t['cmvn_deltas_kernel']:.4f} ms")
 
     cf._lib = lambda: libs["chained accumulation"]

@@ -72,6 +72,46 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("feat_type", ["mfcc", "fbank"])
+def test_kernel_rows_do_not_depend_on_the_batch(cuda, feat_type):
+    """Each row equals itself alone, bit for bit, in a batch of 5 with
+    longer and shorter rows and more padding, and under every work split
+    of pass 1 (the statistics reduce each row over a grid that follows
+    feat_dim alone)."""
+    rng = np.random.default_rng(7)
+    sigs = [(rng.standard_normal(int(t * SR)) * 0.1).astype(np.float32)
+            for t in (1.3, 0.02, 9.7, 2.2, 0.6)]
+
+    def feats(rows, extra=0):
+        audio = np.zeros((len(rows), max(map(len, rows)) + extra),
+                         np.float32)
+        for r, x in enumerate(rows):
+            audio[r, :len(x)] = x
+        return frontend.extract_features(
+            torch.from_numpy(audio).to(cuda),
+            torch.tensor([len(x) for x in rows], device=cuda),
+            use_kernel=True, feat_dim=13, feat_type=feat_type)
+
+    f, l = feats(sigs, extra=SR)
+    for r, x in enumerate(sigs):
+        f1, l1 = feats([x])
+        assert int(l1[0]) == int(l[r])
+        assert torch.equal(f[r, :int(l[r])], f1[0, :int(l1[0])]), r
+    a = torch.from_numpy(
+        (rng.standard_normal((4, 3 * SR)) * 0.1).astype(np.float32)).to(cuda)
+    fl = torch.tensor([297, 150, 6, 0], dtype=torch.int32, device=cuda)
+    kw = dict(flen=400, fstride=160, fft_length=512, feat_dim=13,
+              feat_type=feat_type, num_mel_filters=40, sample_rate=SR,
+              frames_max=298)
+    p = cuda_frontend.plan(400, 160, 512, 13, feat_type, 40, SR)
+    for cmvn in (False, True):
+        outs = [cuda_frontend.fused_frontend(a, fl, apply_cmvn=cmvn,
+                                             work_split=t, **kw)
+                for t in cuda_frontend.tiling_options(p, 298, 13)]
+        assert all(torch.equal(o, outs[0]) for o in outs), cmvn
+
+
+@pytest.mark.cuda
 def test_recognizer_features_on_cuda_match_cpu(cuda):
     cfg = Config(unit="char", vocab_size=30, feat_dim=13, enc_units=32,
                  num_enc_channels=4, num_enc_layers=2, dec_units=32,
@@ -189,7 +229,7 @@ def _tile_frames(B, S, sr, dev):
 @pytest.mark.parametrize("feat_type", ["mfcc", "fbank"])
 def test_subsegment_kernel_edge_cases(cuda, feat_type, case):
     """The redesigned kernel (subsegment DFT on tensor cores, persistent
-    tiles, CMVN from per-tile partials) against the plain version."""
+    tiles, CMVN reduced per utterance) against the plain version."""
     sr = {"odd_g_15khz": 15000, "whole_frames_11025hz": 11025}.get(case, SR)
     rng = np.random.default_rng(7)
     B, S = (1, 60 * sr) if case == "one_utterance_60s" else (8, 4 * sr)

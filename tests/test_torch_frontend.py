@@ -67,6 +67,62 @@ def test_kernel_route_matches_jax_pallas(rng, feat_type, apply_cmvn):
     np.testing.assert_allclose(ft, np.asarray(fj), rtol=RTOL, atol=ATOL)
 
 
+def _mixed_rows(rng, seconds=(1.3, 0.7, 2.1, 0.4, 1.6)):
+    return [(rng.standard_normal(int(t * SR)) * 0.1).astype(np.float32)
+            for t in seconds]
+
+
+def _padded(sigs, extra=0):
+    """(B, S) zero-padded rows (S the longest row + extra samples) and
+    their lengths."""
+    audio = np.zeros((len(sigs), max(map(len, sigs)) + extra), np.float32)
+    for r, x in enumerate(sigs):
+        audio[r, :len(x)] = x
+    return audio, np.array([len(x) for x in sigs], np.int32)
+
+
+@pytest.mark.parametrize("apply_cmvn", [True, False])
+@pytest.mark.parametrize("feat_type", ["mfcc", "fbank"])
+def test_plain_rows_do_not_depend_on_the_batch(rng, feat_type, apply_cmvn):
+    """Each row's features are bit-equal alone (B = 1), beside its
+    shortest and its longest batch-mate (B = 2), and in the batch of 5 in
+    two orders, one padded by a further second (frames_max grows).  The
+    statistics are prefix sums along each row, so neither the other rows
+    nor frames_max enter them."""
+    sigs = _mixed_rows(rng)
+    kw = dict(feat_dim=13, feat_type=feat_type, apply_cmvn=apply_cmvn)
+
+    def rows(idx, extra=0):
+        f, l = _port(*_padded([sigs[i] for i in idx], extra), **kw)
+        return {i: f[r, :l[r]] for r, i in enumerate(idx)}
+
+    alone = {i: rows([i])[i] for i in range(5)}
+    by_len = sorted(range(5), key=lambda i: len(sigs[i]))
+    batches = [([i, j], 0) for i in range(5)
+               for j in (by_len[0], by_len[-1]) if j != i]
+    batches += [(list(range(5)), 0), (by_len[::-1], SR)]
+    for idx, extra in batches:
+        for i, got in rows(idx, extra).items():
+            np.testing.assert_array_equal(got, alone[i],
+                                          err_msg=f"row {i} in {idx}")
+
+
+@pytest.mark.parametrize("B", [1, 2, 5])
+def test_rows_match_jax_pallas_at_every_batch_size(rng, B):
+    """The kernel route's rows against the Pallas kernel (interpret mode)
+    on the same batch at B = 1, 2 and 5, and equal to the same rows
+    featurized alone."""
+    audio, lens = _padded(_mixed_rows(rng)[:B])
+    fj, lj = jfe.extract_features(audio, lens, feat_dim=13, use_pallas=True)
+    ft, lt = _port(audio, lens, feat_dim=13, use_kernel=True)
+    np.testing.assert_array_equal(np.asarray(lj), lt)
+    np.testing.assert_allclose(ft, np.asarray(fj), rtol=RTOL, atol=ATOL)
+    for r in range(B):
+        f1, l1 = _port(audio[r:r + 1, :lens[r]], lens[r:r + 1], feat_dim=13,
+                       use_kernel=True)
+        np.testing.assert_array_equal(ft[r, :lt[r]], f1[0, :l1[0]])
+
+
 def test_frames_max_truncation_zeroes_the_tail(rng):
     audio = (rng.standard_normal((2, SR)) * 0.1).astype(np.float32)
     audiolen = np.full((2,), SR, np.int32)
@@ -123,18 +179,30 @@ def _matmul_tf32(a, b, passes=3):
     return al @ bh + ah @ bl + ah @ bh
 
 
-def _chan(acc, part):
-    """Chan et al.'s merge of (count, mean, M2) partials, as the kernel."""
-    (n, m, m2), (nb, mb, m2b) = acc, part
-    nn = n + nb
-    safe = np.where(nn > 0, nn, 1).astype(np.float32)
-    delta = mb - m
-    m_new = np.where(n == 0, mb, m + delta * (nb / safe))
-    m2_new = np.where(n == 0, m2b, m2 + m2b + delta * delta * (n * nb / safe))
-    keep = nb == 0
-    return (np.where(keep, n, nn).astype(np.float32),
-            np.where(keep, m, m_new).astype(np.float32),
-            np.where(keep, m2, m2_new).astype(np.float32))
+def _emulate_stats(x, n):
+    """The statistics kernel's order on one utterance's raw features x
+    (frames, D) with n valid frames: thread (g, d) sums frames g, g + G,
+    ... in turn (G = cuda_frontend.stats_groups(D)), thread d adds the G
+    sums in order; first for the mean, then for the centred squares.
+    Returns (mean, std + 2^-30)."""
+    D = x.shape[1]
+    G = cuda_frontend.stats_groups(D)
+    count = np.float32(max(n, 1))
+
+    def total(v):
+        rows = np.zeros((-(-n // G) * G, D), np.float32)
+        rows[:n] = v
+        parts = np.zeros((G, D), np.float32)
+        for i in range(0, len(rows), G):
+            parts += rows[i:i + G]
+        out = np.zeros(D, np.float32)
+        for q in range(G):
+            out += parts[q]
+        return out
+
+    mean = total(x[:n]) / count
+    c = x[:n] - mean
+    return mean, np.sqrt(total(c * c) / count) + np.float32(tfe.EPS_CMVN)
 
 
 def _emulate_kernel(audio, featlen, T, feat_type, apply_cmvn, sr=SR,
@@ -142,9 +210,9 @@ def _emulate_kernel(audio, featlen, T, feat_type, apply_cmvn, sr=SR,
     """NumPy float32 model of csrc/fused_frontend.cu's arithmetic, from
     cuda_frontend.plan's constants and cuda_frontend.tiling's work split:
     per work item, the segment rows' partial DFTs by 3xTF32, the twiddle
-    combine, Parseval energy, sparse mel, DCT with c0 = log energy, and
-    the per-tile (count, mean, M2); then pass 2's fixed-order Chan merge,
-    normalization and deltas."""
+    combine, Parseval energy, sparse mel, DCT with c0 = log energy; then
+    each utterance's statistics in the statistics kernel's order
+    (_emulate_stats) and pass 2's normalization and deltas."""
     flen, fstride = host.frame_params(sr, 25, 10)
     p = cuda_frontend.plan(flen, fstride, 512, 13, feat_type, 40, sr)
     B, S = audio.shape
@@ -181,29 +249,11 @@ def _emulate_kernel(audio, featlen, T, feat_type, apply_cmvn, sr=SR,
     if not apply_cmvn:
         return feat.reshape(B, nt * tt, D)[:, :T]
     fl = np.clip(featlen, 0, T)
-    # pass 1's partials: count, mean, M2 of the frames < featlen
-    n = np.clip(fl[:, None] - np.arange(nt)[None, :] * tt, 0, tt)
-    m = (np.arange(tt)[None, None, :] < n[..., None]).astype(np.float32)
-    cnt = n.astype(np.float32)[..., None]
-    mean = (feat * m[..., None]).sum(2) / np.maximum(cnt, 1)
-    c = (feat - mean[:, :, None]) * m[..., None]
-    m2 = (c * c).sum(2)
+    raw = feat.reshape(B, nt * tt, D)
     out = np.zeros((B, nt * tt, D, 3), np.float32)
-    groups = 256 // D
     for b in range(B):
-        n_valid = -(-int(fl[b]) // tt)
-        parts = []
-        for g in range(groups):
-            acc = (np.zeros(D, np.float32),) * 3
-            for i in range(g, n_valid, groups):
-                acc = _chan(acc, (np.full(D, cnt[b, i, 0]), mean[b, i],
-                                  m2[b, i]))
-            parts.append(acc)
-        acc = (np.zeros(D, np.float32),) * 3
-        for part in parts:
-            acc = _chan(acc, part)
-        den = np.sqrt(acc[2] / max(acc[0][0], 1)) + np.float32(tfe.EPS_CMVN)
-        x = (feat[b].reshape(-1, D) - acc[1]) / den
+        mean, den = _emulate_stats(raw[b], int(fl[b]))
+        x = (raw[b] - mean) / den
         out[b] = tfe.stack_derivatives(torch.from_numpy(
             x.astype(np.float32))[None])[0].numpy()
         out[b, fl[b]:] = 0.0
@@ -361,6 +411,44 @@ def test_tiling_fills_the_card(B, seconds):
         assert tl.mt == 1
     else:
         assert tl.mt == max(fits)
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 8, 128])
+def test_statistics_scratch_does_not_depend_on_the_batch(B):
+    """The wrapper's statistics scratch holds each row's mean and
+    deviation, (B, 2, D), whatever frames_max and pass 1's work split at
+    this B (which follows B); the statistics kernel's frame grid follows
+    feat_dim alone."""
+    p = cuda_frontend.plan(400, 160, 512, 13, "mfcc", 40, SR)
+    splits = set()
+    for seconds in (2, 10, 60):
+        T = host.num_frames(seconds * SR, 400, 160)
+        splits.add(cuda_frontend.tiling(p, B, T, 132, 13)[:2])
+        raw, stats, out = cuda_frontend.buffers(B, T, 13, True,
+                                                torch.device("cpu"))
+        assert raw.shape == (B, T, 13) and out.shape == (B, T, 13, 3)
+        assert stats.shape == (B, 2, 13)
+        raw, stats, out = cuda_frontend.buffers(B, T, 13, False,
+                                                torch.device("cpu"))
+        assert out is raw and stats.numel() == 1
+    assert splits <= {(1, 6), (2, 14)}
+    assert cuda_frontend.stats_groups(13) == 78
+    assert cuda_frontend.stats_groups(cuda_frontend.MAX_FEAT_DIM) == 4
+
+
+def test_forced_work_splits_are_the_plans_options():
+    """Every work split `fused_frontend(..., work_split=)` accepts: mt 2
+    and 1, the basis in shared memory or read from global memory;
+    `tiling` picks among those with the basis in shared memory."""
+    p = cuda_frontend.plan(400, 160, 512, 13, "mfcc", 40, SR)
+    opts = cuda_frontend.tiling_options(p, 998, 13)
+    assert [(t.mt, t.tt, t.basis_in_smem) for t in opts] == [
+        (2, 14, True), (1, 6, True), (2, 14, False), (1, 6, False)]
+    assert all(t.smem <= cuda_frontend.SMEM_LIMIT for t in opts)
+    assert all(t.n_tiles * t.tt >= 998 > (t.n_tiles - 1) * t.tt
+               for t in opts)
+    for B in (1, 8, 128):
+        assert cuda_frontend.tiling(p, B, 998, 132, 13) in opts[:2]
 
 
 def test_tiling_takes_the_device_plan():
