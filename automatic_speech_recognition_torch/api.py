@@ -53,6 +53,7 @@ from .ops import frontend, quant
 from .parallel import sharding, workers
 from .parallel.mesh import eval_mesh
 from .training.checkpoint import CheckpointManager
+from .utils import spans
 
 
 class Recognizer:
@@ -124,11 +125,13 @@ class Recognizer:
     def _features(self, signals: Sequence[np.ndarray], pad_seconds: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Pad to a whole number of seconds, at least pad_seconds (the
-        serving bucket), and featurize on the first device."""
+        serving bucket), and featurize on the first device (a
+        `recognizer.featurize` span, as workers.featurize)."""
         audio, lens = self._audio(signals, pad_seconds)
-        return frontend.extract_features_cfg(
-            torch.from_numpy(audio).to(self.device),
-            torch.from_numpy(lens).to(self.device), self.cfg)
+        with spans.span("recognizer.featurize"):
+            return frontend.extract_features_cfg(
+                torch.from_numpy(audio).to(self.device),
+                torch.from_numpy(lens).to(self.device), self.cfg)
 
     def greedy(self, feats: torch.Tensor, featlen: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -37,6 +37,12 @@ update is masked per utterance with active = (t < dec_step) &
 stop where its own search stopped.  The loop reads `active.any()` on the
 host once per step.
 
+Spans (utils/spans.py): `beam.search` around a batch, the counter
+`beam.steps`, and fine ranges `beam.step.attention`,
+`beam.step.ctc_prefix` and `beam.step.topk` under a profiler.
+step_scores=True keeps each hypothesis's per-step terms beside its
+tokens (StepScores), so a search can be held step by step.
+
 Ties: every top-K is a stable descending sort, so among equal scores the
 lower index comes first (lower beam, then lower token id; the bank before
 the new hypotheses), which is jax.lax.top_k's rule, on the CPU and on
@@ -61,6 +67,7 @@ from ..models import char_rnn, las
 from ..models.las import LAS
 from ..ops import attention as att
 from ..ops import layers as L
+from ..utils import spans
 from . import ctc_prefix
 
 log = logging.getLogger("beam")
@@ -70,11 +77,23 @@ NEG = -1.0e30
 TOP_EXPANSIONS = 64
 
 
+class StepScores(NamedTuple):
+    """Each kept hypothesis's terms a step, (B, K, max_steps) float32,
+    valid for its first `lengths` steps: the attention decoder's score of
+    the token it took (the log-prob with logprob=True, after LM fusion),
+    and with joint CTC the prefix score's increment dPsi (None without).
+    Its score is sum_t ((1 - w) attention + w ctc_prefix) over the length
+    divisor, plus the coverage terms."""
+    attention: torch.Tensor
+    ctc_prefix: Optional[torch.Tensor]
+
+
 class BeamResult(NamedTuple):
     tokens: torch.Tensor   # (B, K, max_steps) generated ids (EOS included)
     lengths: torch.Tensor  # (B, K) generated token counts
     scores: torch.Tensor   # (B, K) length-normalized scores, best first
     steps: int             # decoder steps run: the last utterance's stop
+    step_scores: Optional[StepScores] = None   # beam_search(step_scores=True)
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -141,11 +160,13 @@ def beam_search(model: LAS, feats: torch.Tensor, featlen: torch.Tensor,
                 cfg: Config, max_steps: int, beam_size: int = 8,
                 logprob: bool = False,
                 lm: Optional[char_rnn.CharRNN] = None,
-                lm_cfg: Optional[char_rnn.LMConfig] = None) -> BeamResult:
+                lm_cfg: Optional[char_rnn.LMConfig] = None,
+                step_scores: bool = False) -> BeamResult:
     """Batched beam decode: (B, T, D, 3) features -> BeamResult.
 
     max_steps bounds the search (convert_rate * padded frames); each
-    utterance's own budget is convert_rate * featlen."""
+    utterance's own budget is convert_rate * featlen.  step_scores=True
+    also returns each kept hypothesis's terms a step (StepScores)."""
     use_cov = cfg.beam_coverage_penalty > 0 or cfg.beam_coverage_reward > 0
     if use_cov and not logprob:
         log.warning("coverage scoring is tuned for log-prob scoring; "
@@ -162,14 +183,22 @@ def beam_search(model: LAS, feats: torch.Tensor, featlen: torch.Tensor,
             "ctc_beam_weight > 0 needs a checkpoint trained with "
             "--ctc True (no ctc_head in the restored parameters)")
 
-    with las.compute_cast(cfg, model):
+    with las.compute_cast(cfg, model), spans.span("beam.search"):
         return _beam_search(model, feats, featlen, cfg, max_steps, beam_size,
-                            logprob, lm, lm_cfg, use_ctc, use_cov)
+                            logprob, lm, lm_cfg, use_ctc, use_cov,
+                            step_scores)
+
+
+def _extend(hist: torch.Tensor, rows, parent, s: int, value) -> torch.Tensor:
+    """The children's histories: each parent's, with step s set."""
+    new = hist[rows, parent]
+    new[..., s] = value
+    return new
 
 
 def _beam_search(model: LAS, feats, featlen, cfg: Config, max_steps: int,
                  beam_size: int, logprob: bool, lm, lm_cfg, use_ctc: bool,
-                 use_cov: bool) -> BeamResult:
+                 use_cov: bool, keep_terms: bool) -> BeamResult:
     sp = model.speller
     use_lm = lm is not None
     cdt = las.compute_dtype(cfg)
@@ -209,6 +238,12 @@ def _beam_search(model: LAS, feats, featlen, cfg: Config, max_steps: int,
     n_finished = torch.zeros((B,), **i64)
     lm_states = char_rnn.zero_state(lm_cfg, BK, dev) if use_lm else None
     cum_align = torch.zeros((B, K, T), device=dev)
+    # per-step terms of the live beams and of the bank (StepScores)
+    terms = bank_terms = None
+    if keep_terms:
+        terms = [torch.zeros((B, K, max_steps), device=dev)
+                 for _ in range(1 + use_ctc)]
+        bank_terms = [torch.zeros_like(x) for x in terms]
 
     steps = 0
     for s in range(max_steps):
@@ -216,22 +251,25 @@ def _beam_search(model: LAS, feats, featlen, cfg: Config, max_steps: int,
         if not bool(active.any()):                        # host sync
             break
         steps = s + 1
-        logits, new_states, alphas = las.decode_step(
-            sp, enc_k, enc_len_k, dec_states,
-            L.embed(sp.embedding, prev_ids.reshape(BK)),
-            prev_align.reshape(BK, T), h_proj_k)
-        logits = logits.float()
+        with spans.fine("beam.step.attention"):
+            logits, new_states, alphas = las.decode_step(
+                sp, enc_k, enc_len_k, dec_states,
+                L.embed(sp.embedding, prev_ids.reshape(BK)),
+                prev_align.reshape(BK, T), h_proj_k)
+            logits = logits.float()
         if use_lm:
             lm_logits, new_lm = char_rnn.lm_step(
                 lm, lm_cfg, prev_ids.reshape(BK) - 2, lm_states)
             logits[:, 2:] += cfg.lm_weight * lm_logits
         step_scores = (torch.log_softmax(logits, -1) if logprob
                        else logits).reshape(B, K, V)
+        att_scores = step_scores
         if use_ctc:
             # at step 0 the prefix is empty: no token can be a repeat
             last_ids = prev_ids if s > 0 else torch.full_like(prev_ids, -1)
-            psi_delta, r_all, psi_all = ctc_prefix.step(
-                ctc_x, ctc_r, ctc_psi, last_ids, s == 0)
+            with spans.fine("beam.step.ctc_prefix"):
+                psi_delta, r_all, psi_all = ctc_prefix.step(
+                    ctc_x, ctc_r, ctc_psi, last_ids, s == 0)
             step_scores = (1.0 - w) * step_scores + w * psi_delta
         if cfg.beam_eos_margin >= 0:
             best_other = step_scores.index_fill(-1, control_ids,
@@ -244,15 +282,15 @@ def _beam_search(model: LAS, feats, featlen, cfg: Config, max_steps: int,
             # only then can pruning change the top-K selection
             step_scores = prune_expansions(step_scores, TOP_EXPANSIONS)
 
-        cand = torch.where(valid[..., None], cum[..., None] + step_scores,
-                           NEG)
-        if s > 0:
-            cand[..., SOS_ID] += NEG
-        scores, flat_idx = _top_k(cand.reshape(B, K * V), K)
+        with spans.fine("beam.step.topk"):
+            cand = torch.where(valid[..., None],
+                               cum[..., None] + step_scores, NEG)
+            if s > 0:
+                cand[..., SOS_ID] += NEG
+            scores, flat_idx = _top_k(cand.reshape(B, K * V), K)
         parent, tok = flat_idx // V, flat_idx % V
         flat_parent = (rows * K + parent).reshape(BK)
-        new_tokens = tokens[rows, parent]
-        new_tokens[..., s] = tok
+        new_tokens = _extend(tokens, rows, parent, s, tok)
         # a slot is real iff it descends from an actual candidate
         real = scores > NEG * 0.5
         eos = (tok == EOS_ID) & real
@@ -267,6 +305,10 @@ def _beam_search(model: LAS, feats, featlen, cfg: Config, max_steps: int,
         cat_tokens = torch.cat([bank_tokens, new_tokens], 1)
         cat_len = torch.cat([bank_len, torch.full((B, K), s + 1, **i64)], 1)
         new_bank_score, bidx = _top_k(cat_scores, K)
+        if terms is not None:
+            picked = [att_scores] + ([psi_delta] if use_ctc else [])
+            new_terms = [_extend(h, rows, parent, s, x[rows, parent, tok])
+                         for h, x in zip(terms, picked)]
 
         # commit, leaving the carry of a stopped utterance frozen
         a1, a2 = active[:, None], active[:, None, None]
@@ -293,6 +335,11 @@ def _beam_search(model: LAS, feats, featlen, cfg: Config, max_steps: int,
             ctc_psi = torch.where(a1, psi_all[rows, parent, tok], ctc_psi)
         if use_cov:
             cum_align = torch.where(a2, new_cum_align, cum_align)
+        if terms is not None:
+            bank_terms = [torch.where(a2, torch.cat([b, n], 1)[rows, bidx], b)
+                          for b, n in zip(bank_terms, new_terms)]
+            terms = [torch.where(a2, n, o) for n, o in zip(new_terms, terms)]
+    spans.count("beam.steps", steps)
 
     # step budget exhausted: still-live beams join the bank
     # (las/beam_search.py:155-156)
@@ -304,5 +351,10 @@ def _beam_search(model: LAS, feats, featlen, cfg: Config, max_steps: int,
     cat_tokens = torch.cat([bank_tokens, tokens], 1)
     cat_len = torch.cat([bank_len, t[:, None].expand(B, K)], 1)
     final_score, idx = _top_k(cat_scores, K)
+    kept = None
+    if terms is not None:
+        kept = [torch.cat([b, h], 1)[rows, idx]
+                for b, h in zip(bank_terms, terms)]
+        kept = StepScores(kept[0], kept[1] if use_ctc else None)
     return BeamResult(cat_tokens[rows, idx], cat_len[rows, idx], final_score,
-                      steps)
+                      steps, kept)

@@ -29,6 +29,11 @@ automatic_speech_recognition_tpu/models/las.py).
   so does every state the optimizer and checkpoints see.  Logits, alphas
   and CTC logits come back float32.
 
+Host spans (utils/spans.py): `las.listener` around the listener's
+forward, `las.speller` around a decoder loop with its counter
+`las.speller.steps`, and a fine `las.speller.step` range a decoder step
+under a profiler.
+
 Training branches are chosen by an explicit is_training, never by
 nn.Module.training (cuDNN's RNN backward needs train mode); randomness
 comes from an explicit torch.Generator.
@@ -54,6 +59,7 @@ from ..ops import attention as att
 from ..ops import augmentation
 from ..ops import layers as L
 from ..parallel import distributed
+from ..utils import spans
 
 # new BN moving statistics by module name under the model ("listener....")
 BNState = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
@@ -293,12 +299,15 @@ def speller_greedy(sp: Speller, enc_out, enc_len, dec_steps: int
     align = enc_out.new_zeros(B, T_enc)
     h_proj = att.precompute_hidden(sp.attention, enc_out)
     logits, alphas = [], []
-    for _ in range(dec_steps):
-        lg, states, align = decode_step(sp, enc_out, enc_len, states, emb,
-                                        align, h_proj)
-        emb = L.embed(sp.embedding, lg.argmax(-1))
-        logits.append(lg)
-        alphas.append(align)
+    with spans.span("las.speller"):
+        for _ in range(dec_steps):
+            with spans.fine("las.speller.step"):
+                lg, states, align = decode_step(sp, enc_out, enc_len, states,
+                                                emb, align, h_proj)
+                emb = L.embed(sp.embedding, lg.argmax(-1))
+            logits.append(lg)
+            alphas.append(align)
+        spans.count("las.speller.steps", dec_steps)
     return torch.stack(logits, 1), torch.stack(alphas, 1)
 
 
@@ -355,25 +364,30 @@ def speller_train(sp: Speller, cfg: Config, enc_out, enc_len,
     align = enc_out.new_zeros(B, T_enc)
     h_proj = att.precompute_hidden(sp.attention, enc_out)
     logits, alphas = [], []
-    for t in range(teacher.shape[1]):
-        if cfg.remat:
-            lg, states, align = checkpoint(
-                decode_step, sp, enc_out, enc_len, states, emb, align,
-                h_proj, use_reentrant=False, preserve_rng_state=False)
-        else:
-            lg, states, align = decode_step(sp, enc_out, enc_len, states,
-                                            emb, align, h_proj)
-        ids = teacher[:, t].long()
-        if sampling:
-            coin = torch.rand((), generator=generator, device=dev)
-            sampled = torch.multinomial(torch.softmax(lg.detach().float(),
-                                                      -1), 1,
-                                        generator=per_row)[:, 0]
-            ids = torch.where(tf_rate > coin, ids, sampled)
-        emb = L.dropout(L.embed(sp.embedding, ids, vn),
-                        cfg.dropout_rate, True, per_row)
-        logits.append(lg)
-        alphas.append(align)
+    with spans.span("las.speller"):
+        for t in range(teacher.shape[1]):
+            with spans.fine("las.speller.step"):
+                if cfg.remat:
+                    lg, states, align = checkpoint(
+                        decode_step, sp, enc_out, enc_len, states, emb,
+                        align, h_proj, use_reentrant=False,
+                        preserve_rng_state=False)
+                else:
+                    lg, states, align = decode_step(sp, enc_out, enc_len,
+                                                    states, emb, align,
+                                                    h_proj)
+                ids = teacher[:, t].long()
+                if sampling:
+                    coin = torch.rand((), generator=generator, device=dev)
+                    sampled = torch.multinomial(
+                        torch.softmax(lg.detach().float(), -1), 1,
+                        generator=per_row)[:, 0]
+                    ids = torch.where(tf_rate > coin, ids, sampled)
+                emb = L.dropout(L.embed(sp.embedding, ids, vn),
+                                cfg.dropout_rate, True, per_row)
+            logits.append(lg)
+            alphas.append(align)
+        spans.count("las.speller.steps", teacher.shape[1])
     return torch.stack(logits, 1), torch.stack(alphas, 1)
 
 
@@ -396,7 +410,8 @@ class LAS(nn.Module):
         (bfloat16 inside compute_cast).  Returns (logits, alphas) in
         float32 and enc_len."""
         audio = audio.to(self.speller.embedding.weight.dtype)
-        enc_out, enc_len = self.listener(audio, audiolen)
+        with spans.span("las.listener"):
+            enc_out, enc_len = self.listener(audio, audiolen)
         logits, alphas = speller_greedy(self.speller, enc_out, enc_len,
                                         dec_steps)
         return logits.float(), alphas.float(), enc_len
@@ -418,9 +433,10 @@ def las_forward(model: LAS, audio, audiolen, cfg: Config, dec_steps: int,
     normalizes over."""
     per_row = rank_generator if rank_generator is not None else generator
     with compute_cast(cfg, model):
-        enc_out, enc_len, lstate = model.listener.encode(
-            audio.to(compute_dtype(cfg)), audiolen, is_training,
-            cfg.dropout_rate, per_row, group)
+        with spans.span("las.listener"):
+            enc_out, enc_len, lstate = model.listener.encode(
+                audio.to(compute_dtype(cfg)), audiolen, is_training,
+                cfg.dropout_rate, per_row, group)
         sp = model.speller
         ctc_logits = (sp.ctc_head(enc_out).float()
                       if sp.ctc_head is not None else None)

@@ -80,6 +80,7 @@ from ..models.las import LAS
 from ..ops import _kernels, cuda_frontend, quant
 from ..ops import frontend as fe
 from ..training import trainer
+from ..utils import spans
 from ..utils.device import host_tensor
 from ..utils.platform import WorkerError, WorkerLost
 from ..utils.tokenizer import EOS_ID
@@ -119,10 +120,12 @@ def featurize(r: Loaded, audio: torch.Tensor, lens: torch.Tensor,
               frontend: str = "signals"):
     """Raw audio rows -> (feats, featlen): 'signals' as
     api.Recognizer._features (ops/frontend.extract_features_cfg), 'batch'
-    as the loader's batches (ops/frontend.featurize_batch)."""
-    if frontend == "batch":
-        return fe.featurize_batch(audio, lens, r.cfg)
-    return fe.extract_features_cfg(audio, lens, r.cfg)
+    as the loader's batches (ops/frontend.featurize_batch); a
+    `recognizer.featurize` span (utils/spans.py)."""
+    with spans.span("recognizer.featurize"):
+        if frontend == "batch":
+            return fe.featurize_batch(audio, lens, r.cfg)
+        return fe.extract_features_cfg(audio, lens, r.cfg)
 
 
 def greedy(r: Loaded, feats: torch.Tensor, featlen: torch.Tensor,

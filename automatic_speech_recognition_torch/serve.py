@@ -11,6 +11,9 @@ Endpoints (stdlib http.server):
   GET  /healthz      liveness, the torch devices and every replica's
                      devices, split and worker process
   GET  /stats        batching and latency counters (ServingStats.snapshot)
+                     and, under "spans", this process's span totals and
+                     counters (utils/spans.report: serve.batch,
+                     recognizer.featurize, las.*, beam.*)
 
 Concurrent requests are coalesced by serving.BatchingRecognizer into
 length-bucketed batches of --max_batch, one featurize + decode each (the
@@ -45,6 +48,7 @@ from .api import Recognizer
 from .serving import BatchingRecognizer
 from .parallel.mesh import devices_for
 from .parallel.workers import exit_on_sigterm
+from .utils import spans
 from .utils.device import disable_tf32, split_device
 
 log = logging.getLogger("serve")
@@ -116,7 +120,8 @@ def make_handler(server: BatchingRecognizer, sample_rate: int):
             if self.path == "/healthz":
                 self._reply(200, health)
             elif self.path == "/stats":
-                self._reply(200, server.stats.snapshot())
+                self._reply(200, dict(server.stats.snapshot(),
+                                      spans=spans.report()))
             else:
                 self._reply(404, {"error": f"no route {self.path}"})
 

@@ -20,6 +20,9 @@ Recognizer; the logic is the same).
   when it is done, in whatever order the batches finish.  With one
   replica the batch runs on the dispatcher thread, as it always did.
 
+Each batch is one `serve.batch` span (utils/spans.py) from its dispatch
+to its finish, which serve.py's GET /stats reports.
+
 Thread-safety: device work happens only on the dispatcher thread or in
 the recognizer's worker processes (and in `warmup()` before `start()`);
 callers only touch queues and futures.
@@ -37,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .api import Recognizer
+from .utils import spans
 
 
 class ServingStats:
@@ -274,16 +278,21 @@ class BatchingRecognizer:
             signals.append(signals[-1])
         bucket = max(r.bucket for r in batch)
         t_dispatch = time.monotonic()
+        span_start = time.perf_counter_ns()
         try:
             fut = self._submit(signals, bucket)
         except Exception as e:  # pragma: no cover - a closed pool
             fut = Future()
             fut.set_exception(e)
         fut.add_done_callback(
-            lambda f: self._finish(batch, live, n, t_dispatch, f))
+            lambda f: self._finish(batch, live, n, t_dispatch, f,
+                                   span_start))
 
     def _finish(self, batch: List[_Request], live: List[_Request], n: int,
-                t_dispatch: float, fut: Future) -> None:
+                t_dispatch: float, fut: Future, span_start: int) -> None:
+        # the batch's span: dispatched on the batcher's thread, finished
+        # here (the same thread for an inline replica)
+        spans.record("serve.batch", span_start)
         try:
             if fut.exception() is not None:  # pragma: no cover - device
                 for r in live:

@@ -53,7 +53,11 @@ Both listeners (--enc_type cnn, pblstm) and both compute dtypes train;
 under --dtype bfloat16 the weights, the optimizer and the checkpoints
 stay float32 (models/las.compute_cast).  --profile_dir records a
 torch.profiler trace of steps 10-20 (trace.json; trace.rank<r>.json for
-the other processes of a data-parallel job).
+the other processes of a data-parallel job), in which the program's
+coarse spans are named ranges; the log line names the trace's clock mark
+(utils/spans.py).  Every logging step's line gives the mean ms a step of
+each coarse train.* and las.* span since the last line, and the last
+line their totals over the run.
 
 Under torchrun (parallel/distributed.py) each process drives
 cuda:LOCAL_RANK (gloo with --device cpu), reads its rows of every global
@@ -108,7 +112,7 @@ from .parallel import distributed, launch
 from .parallel.mesh import devices_for, make_mesh
 from .training import trainer
 from .training.checkpoint import CheckpointManager
-from .utils import memlog
+from .utils import memlog, spans
 from .utils.device import disable_tf32, split_device
 
 
@@ -143,6 +147,8 @@ MODULE = "automatic_speech_recognition_torch.train"
 # where each host's first rank writes the history (JSON) for a train.main that
 # started the ranks
 HISTORY_ENV = "ASR_TRAIN_HISTORY"
+# the spans the logging-step and end-of-run lines report (utils/spans.py)
+PHASES = ("train.", "las.")
 
 
 def check_batch_split(cfg: Config, dp: int) -> None:
@@ -190,6 +196,26 @@ def train_over_ranks(ranks: launch.Ranks, device_name: str,
                                     ranks.world // cfg.num_partitions)
     CheckpointManager(cfg.save_dir, max_to_keep=cfg.max_to_keep).restore(ts)
     return ts, history
+
+
+def phase_report(before: Dict) -> Dict[str, Dict]:
+    """The totals of each coarse train.* / las.* span since the
+    spans.totals() reading `before` (counters left out)."""
+    return {k: v for k, v in spans.report(before, PHASES).items()
+            if "total_s" in v}
+
+
+def phase_ms(before: Dict, steps: int) -> str:
+    """phase_report's spans as mean ms a step over `steps` steps."""
+    return ", ".join(f"{k} {1e3 * v['total_s'] / max(steps, 1):.1f}"
+                     for k, v in phase_report(before).items())
+
+
+def clock_note() -> str:
+    """The trace's spans.clock mark, which maps the span ring onto it
+    (utils/spans.py)."""
+    mark = spans.clock_marks[-1] if spans.clock_marks else None
+    return f"spans clock mark {mark} ns"
 
 
 def main(argv: Optional[Sequence[str]] = None, exec_launcher: bool = False
@@ -280,7 +306,7 @@ def main(argv: Optional[Sequence[str]] = None, exec_launcher: bool = False
         save_config_snapshot(cfg, cfg.save_dir)
     writer = (summary_lib.SummaryWriter(cfg.summary_dir) if primary
               else summary_lib.NullSummaryWriter())
-    timers = summary_lib.StageTimer()
+    span_start = span_last = spans.totals()
     step_fn, ts, shard_batch = trainer.make_mesh_train_step(mesh, ts, None,
                                                             cfg)
     group = mesh.group          # the world: signals and alarms are OR-ed
@@ -334,8 +360,7 @@ def main(argv: Optional[Sequence[str]] = None, exec_launcher: bool = False
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             profiler = torch.profiler.profile(activities=activities)
             profiler.start()
-        with timers.stage("train_step"):
-            metrics = step_fn(ts, batch)
+        metrics = step_fn(ts, batch)
         if watchdog is not None:
             watchdog.pet()
         global_step += 1
@@ -347,16 +372,18 @@ def main(argv: Optional[Sequence[str]] = None, exec_launcher: bool = False
             profiler.export_chrome_trace(
                 os.path.join(cfg.profile_dir, trace_name))
             profiler, profile_done = None, True
-            log.info("profiler trace written to %s", cfg.profile_dir)
+            log.info("profiler trace written to %s (%s)", cfg.profile_dir,
+                     clock_note())
         if global_step % 10 == 0 or global_step == start_step + 1:
             m = {k: v.item() for k, v in metrics.items() if v.dim() == 0}
             now = time.perf_counter()
             sps = (global_step - s_last) / max(now - t_last, 1e-9)
-            t_last, s_last = now, global_step
+            phases = phase_ms(span_last, global_step - s_last)
+            t_last, s_last, span_last = now, global_step, spans.totals()
             log.info("step %d/%d loss %.4f lr %.2e tf %.2f gnorm %.2f "
-                     "att %.2f (%.2f steps/s)", global_step, total_steps,
-                     m["loss"], m["lr"], m["tf_rate"], m["grad_norm"],
-                     m["att_peak"], sps)
+                     "att %.2f (%.2f steps/s) ms a step: %s", global_step,
+                     total_steps, m["loss"], m["lr"], m["tf_rate"],
+                     m["grad_norm"], m["att_peak"], sps, phases)
             # host-memory growth curve, as the JAX trainer logs it
             if primary and global_step - mem_last_step >= 500:
                 mem_last_step = global_step
@@ -396,7 +423,7 @@ def main(argv: Optional[Sequence[str]] = None, exec_launcher: bool = False
                 log.info("HYP: %s", hyp[:120])
         if global_step % steps_per_epoch == 0:
             epoch = global_step // steps_per_epoch
-            with timers.stage("checkpoint"):
+            with spans.span("train.checkpoint"):
                 ckpt.save(epoch, ts)
             log.info("saved epoch %d -> %s", epoch, cfg.save_dir)
 
@@ -408,8 +435,8 @@ def main(argv: Optional[Sequence[str]] = None, exec_launcher: bool = False
         os.makedirs(cfg.profile_dir, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(cfg.profile_dir,
                                                   trace_name))
-        log.info("profiler trace (short run) written to %s",
-                 cfg.profile_dir)
+        log.info("profiler trace (short run) written to %s (%s)",
+                 cfg.profile_dir, clock_note())
     if global_step % steps_per_epoch and not stop_requested:
         ckpt.save(max(1, global_step // steps_per_epoch + 1), ts)
     ckpt.close()
@@ -417,7 +444,8 @@ def main(argv: Optional[Sequence[str]] = None, exec_launcher: bool = False
         signal.signal(sig, handler)
     if watchdog is not None:
         watchdog.stop()
-    log.info("done at step %d; timers: %s", global_step, timers.report())
+    log.info("done at step %d; timers: %s", global_step,
+             phase_report(span_start))
     writer.close()
     history = {k: [float(x) for x in v] for k, v in history.items()}
     # the metrics are the global batch's on every rank: each host's first

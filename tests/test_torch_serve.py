@@ -127,6 +127,11 @@ def test_concurrent_requests_batch_together(server):
     with urllib.request.urlopen(url + "/stats", timeout=10) as r:
         snap = json.loads(r.read())
     assert snap["requests"] == 4 and snap["batches"] <= 4
+    # the span totals of this process (utils/spans.py): the served batches
+    # and the layers they ran
+    assert snap["spans"]["serve.batch"]["calls"] >= snap["batches"]
+    assert {"recognizer.featurize", "las.listener",
+            "las.speller"} <= set(snap["spans"])
 
 
 def test_a_missing_gpu_is_refused(tmp_path):
