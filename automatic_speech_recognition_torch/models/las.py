@@ -29,10 +29,23 @@ automatic_speech_recognition_tpu/models/las.py).
   so does every state the optimizer and checkpoints see.  Logits, alphas
   and CTC logits come back float32.
 
+CUDA graphs of the teacher-forced speller (graphed_loop): where
+graph_eligible holds (a CUDA device, pure teacher forcing, no dropout
+and no variational noise, no remat, no speller module split over a model
+axis, a loop autograd records, no capture under way), a batch shape's
+third training call captures the whole loop, precompute_hidden included,
+as a forward and a backward CUDA graph, and every later call of the
+shape replays them inside one autograd node.
+The graphs replay the kernels the eager loop launches, on the same
+inputs, copied in by value; anything else runs the eager loop.
+
 Host spans (utils/spans.py): `las.listener` around the listener's
-forward, `las.speller` around a decoder loop with its counter
-`las.speller.steps`, and a fine `las.speller.step` range a decoder step
-under a profiler.
+forward, `las.speller` around a decoder loop (eager, or a replay with
+its input copies and output clones) with its counter
+`las.speller.steps` (every decoder step), and a fine `las.speller.step`
+range an eager decoder step under a profiler.  Counters of the graphs:
+`las.speller.graph_steps`, the decoder steps a replay ran, and
+`las.speller.graph_captures`.
 
 Training branches are chosen by an explicit is_training, never by
 nn.Module.training (cuDNN's RNN backward needs train mode); randomness
@@ -50,6 +63,7 @@ from typing import Dict, Iterator, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from automatic_speech_recognition_torch.config import Config
@@ -59,6 +73,7 @@ from ..ops import attention as att
 from ..ops import augmentation
 from ..ops import layers as L
 from ..parallel import distributed
+from ..parallel import tensor_parallel as tp
 from ..utils import spans
 
 # new BN moving statistics by module name under the model ("listener....")
@@ -99,6 +114,20 @@ def _cast_lock(model: nn.Module) -> threading.RLock:
 
 
 @contextlib.contextmanager
+def _tensors_in(slots, tensors) -> Iterator[None]:
+    """The tensors of `slots`, (parameter or buffer table, name) pairs,
+    swapped for `tensors` inside the block."""
+    saved = [table[name] for table, name in slots]
+    try:
+        for (table, name), t in zip(slots, tensors):
+            table[name] = t
+        yield
+    finally:
+        for (table, name), t in zip(slots, saved):
+            table[name] = t
+
+
+@contextlib.contextmanager
 def compute_cast(cfg: Config, model: nn.Module) -> Iterator[None]:
     """Mixed precision, as the JAX package's compute_cast: under
     cfg.dtype 'bfloat16', inside the block the model's float32 parameters
@@ -117,23 +146,21 @@ def compute_cast(cfg: Config, model: nn.Module) -> Iterator[None]:
         if getattr(model, "_cast_active", False):
             yield
             return
-        saved = []
+        slots = []
         for mod in model.modules():
             tables = [mod._parameters]
             if isinstance(mod, nn.RNN):
                 tables.append(mod._buffers)
-            saved += [(table, name, t) for table in tables
+            slots += [(table, name) for table in tables
                       for name, t in table.items()
                       if t is not None and t.dtype == torch.float32]
-        try:
-            for table, name, t in saved:
-                table[name] = t.to(torch.bfloat16)
+        with _tensors_in(slots, [table[name].to(torch.bfloat16)
+                                 for table, name in slots]):
             model._cast_active = True
-            yield
-        finally:
-            for table, name, t in saved:
-                table[name] = t
-            model._cast_active = False
+            try:
+                yield
+            finally:
+                model._cast_active = False
 
 
 class ListenerLayer(nn.Module):
@@ -326,6 +353,10 @@ def scheduled_sampling_rate(cfg: Config, step) -> torch.Tensor:
     return torch.clamp(1.0 - progress * (1.0 - cfg.min_rate), max=1.0)
 
 
+def _pure_teacher_forcing(tf_rate: Union[float, torch.Tensor]) -> bool:
+    return isinstance(tf_rate, float) and tf_rate >= 1.0
+
+
 def speller_train(sp: Speller, cfg: Config, enc_out, enc_len,
                   teacher: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
@@ -342,20 +373,37 @@ def speller_train(sp: Speller, cfg: Config, enc_out, enc_len,
     (the coin, the variational noise on the table) come from `generator`;
     draws per row (the sampled tokens, dropout) from `rank_generator`,
     which defaults to `generator`: under data parallelism the first is
-    the same on every rank and the second differs."""
-    B, T_enc, _ = enc_out.shape
-    dev = enc_out.device
-    sampling = not (isinstance(tf_rate, float) and tf_rate >= 1.0)
-    if generator is None and (sampling or cfg.dropout_rate > 0
-                              or cfg.add_vn):
+    the same on every rank and the second differs.  Where graph_eligible
+    holds, the loop runs as its shape's CUDA graph pair (graphed_loop)."""
+    if generator is None and (not _pure_teacher_forcing(tf_rate)
+                              or cfg.dropout_rate > 0 or cfg.add_vn):
         # reusing fixed masks or coins every step would train silently
         # on the wrong distribution: refuse instead
         raise ValueError(
             "speller_train: a generator is required when training with "
             "scheduled sampling, dropout, or variational noise")
+    per_row = rank_generator if rank_generator is not None else generator
+    with spans.span("las.speller"):
+        if graph_eligible(sp, cfg, tf_rate, enc_out):
+            out = graphed_loop(sp, cfg, enc_out, enc_len, teacher)
+        else:
+            out = _teacher_loop(sp, cfg, enc_out, enc_len, teacher,
+                                generator, tf_rate, per_row)
+        spans.count("las.speller.steps", teacher.shape[1])
+    return out
+
+
+def _teacher_loop(sp: Speller, cfg: Config, enc_out, enc_len, teacher,
+                  generator: Optional[torch.Generator] = None,
+                  tf_rate: Union[float, torch.Tensor] = 1.0,
+                  per_row: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """speller_train's loop, eager, and the body its graph captures."""
+    B, T_enc, _ = enc_out.shape
+    dev = enc_out.device
+    sampling = not _pure_teacher_forcing(tf_rate)
     if sampling:
         tf_rate = torch.as_tensor(tf_rate, dtype=torch.float32, device=dev)
-    per_row = rank_generator if rank_generator is not None else generator
     vn = generator if cfg.add_vn else None
     emb = L.embed(
         sp.embedding, torch.full((B,), SOS_ID, dtype=torch.long, device=dev),
@@ -364,31 +412,219 @@ def speller_train(sp: Speller, cfg: Config, enc_out, enc_len,
     align = enc_out.new_zeros(B, T_enc)
     h_proj = att.precompute_hidden(sp.attention, enc_out)
     logits, alphas = [], []
-    with spans.span("las.speller"):
-        for t in range(teacher.shape[1]):
-            with spans.fine("las.speller.step"):
-                if cfg.remat:
-                    lg, states, align = checkpoint(
-                        decode_step, sp, enc_out, enc_len, states, emb,
-                        align, h_proj, use_reentrant=False,
-                        preserve_rng_state=False)
-                else:
-                    lg, states, align = decode_step(sp, enc_out, enc_len,
-                                                    states, emb, align,
-                                                    h_proj)
-                ids = teacher[:, t].long()
-                if sampling:
-                    coin = torch.rand((), generator=generator, device=dev)
-                    sampled = torch.multinomial(
-                        torch.softmax(lg.detach().float(), -1), 1,
-                        generator=per_row)[:, 0]
-                    ids = torch.where(tf_rate > coin, ids, sampled)
-                emb = L.dropout(L.embed(sp.embedding, ids, vn),
-                                cfg.dropout_rate, True, per_row)
-            logits.append(lg)
-            alphas.append(align)
-        spans.count("las.speller.steps", teacher.shape[1])
+    for t in range(teacher.shape[1]):
+        with spans.fine("las.speller.step"):
+            if cfg.remat:
+                lg, states, align = checkpoint(
+                    decode_step, sp, enc_out, enc_len, states, emb, align,
+                    h_proj, use_reentrant=False, preserve_rng_state=False)
+            else:
+                lg, states, align = decode_step(sp, enc_out, enc_len, states,
+                                                emb, align, h_proj)
+            ids = teacher[:, t].long()
+            if sampling:
+                coin = torch.rand((), generator=generator, device=dev)
+                sampled = torch.multinomial(
+                    torch.softmax(lg.detach().float(), -1), 1,
+                    generator=per_row)[:, 0]
+                ids = torch.where(tf_rate > coin, ids, sampled)
+            emb = L.dropout(L.embed(sp.embedding, ids, vn),
+                            cfg.dropout_rate, True, per_row)
+        logits.append(lg)
+        alphas.append(align)
     return torch.stack(logits, 1), torch.stack(alphas, 1)
+
+
+def graph_eligible(sp: Speller, cfg: Config,
+                   tf_rate: Union[float, torch.Tensor],
+                   enc_out: torch.Tensor) -> bool:
+    """Whether speller_train runs its loop through graphed_loop: on a
+    CUDA device, under pure teacher forcing, with nothing in the loop
+    that draws (no dropout, no variational noise), without remat, with
+    no speller module split over a model axis (its collectives), where
+    autograd records the loop (grad mode on, enc_out and every weight
+    the loop reads requiring a gradient), and outside another capture."""
+    return (enc_out.device.type == "cuda" and _pure_teacher_forcing(tf_rate)
+            and cfg.dropout_rate == 0 and not cfg.add_vn and not cfg.remat
+            and all(tp.axis_of(m) is None for m in sp.modules())
+            and torch.is_grad_enabled() and enc_out.requires_grad
+            and all(table[name].requires_grad
+                    for table, name in _loop_slots(sp))
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class GraphCache:
+    """A speller's graph pairs by graph_key (before its capture, a
+    shape's entry counts its eager calls), and what they share: the side
+    stream they are captured on and one memory pool.  A pair's memory in
+    the pool lives from its forward replay to its backward replay
+    (outputs and gradients leave as clones), so the pairs of all shapes
+    take turns with it, and a capture reuses what earlier ones allocated.
+    `replays` counts the pool's forward replays: a backward checks that
+    no other forward has run since its own."""
+
+    def __init__(self):
+        self.pairs: Dict[tuple, Union[int, "SpellerGraphs"]] = {}
+        self.pool = None
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.replays = 0
+
+
+# keyed weakly: freeing the model frees its graphs and their memory pool
+_GRAPHS: "weakref.WeakKeyDictionary[Speller, GraphCache]" = \
+    weakref.WeakKeyDictionary()
+# a shape's first calls run eager: they warm cuBLAS and the allocator up
+# for it, and show that it recurs before a capture (about as much host
+# time as two eager calls) is paid for
+EAGER_CALLS = 2
+
+
+def speller_graphs(sp: Speller) -> GraphCache:
+    """The graph cache of `sp` (made empty on first use)."""
+    return _GRAPHS.setdefault(sp, GraphCache())
+
+
+def graph_key(enc_out: torch.Tensor, teacher: torch.Tensor) -> tuple:
+    """(rows, T_enc, decoder steps, compute dtype, device): what a graph
+    pair is captured for."""
+    return (enc_out.shape[0], enc_out.shape[1], teacher.shape[1],
+            enc_out.dtype, enc_out.device)
+
+
+def _loop_slots(sp: Speller):
+    """(parameter table, name) of every tensor the teacher-forced loop
+    reads: the speller's parameters but the CTC head's.  Under
+    compute_cast a table holds the bfloat16 copy."""
+    return [(m._parameters, name) for path, m in sp.named_modules()
+            if not path.startswith("ctc_head")
+            for name, t in m._parameters.items() if t is not None]
+
+
+@contextlib.contextmanager
+def _capture(graph: torch.cuda.CUDAGraph, cache: GraphCache
+             ) -> Iterator[None]:
+    """Capture into `graph` on the cache's side stream and pool.
+    torch.cuda.graph would also synchronize and empty the allocator's
+    cache first, and the eager work after a capture would then allocate
+    its memory anew.  thread_local: the loader's prefetcher copies
+    batches to the device from its own thread meanwhile."""
+    cache.stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(cache.stream):
+        graph.capture_begin(pool=cache.pool,
+                            capture_error_mode="thread_local")
+        try:
+            yield
+        finally:
+            graph.capture_end()
+
+
+class SpellerGraphs:
+    """One batch shape's teacher-forced loop, precompute_hidden included,
+    captured as two CUDA graphs in the cache's pool: the forward (logits,
+    alphas from enc_out, enc_len, the teacher ids and the loop's weights)
+    and the backward (the gradients of enc_out and of each weight from
+    those of logits and alphas).  Every input enters by value: forward()
+    copies it into the graph's static buffer, so Adam's in-place update
+    and compute_cast's fresh copies are both seen.  Outputs and gradients
+    come back as clones.  A backward pairs with the latest forward replay
+    in the pool, whose saved activations the pool holds."""
+
+    def __init__(self, sp: Speller, cfg: Config, enc_out, enc_len, teacher,
+                 weights, cache: GraphCache):
+        if cache.pool is None:
+            cache.pool = torch.cuda.graph_pool_handle()
+            cache.stream = torch.cuda.Stream(enc_out.device)
+        self.enc_out = enc_out.detach().clone().requires_grad_()
+        self.enc_len = enc_len.clone()
+        self.teacher = teacher.clone()
+        self.weights = [w.detach().clone().requires_grad_() for w in weights]
+        self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        try:
+            with _capture(self.fwd, cache), \
+                    _tensors_in(_loop_slots(sp), self.weights):
+                self.logits, self.alphas = _teacher_loop(
+                    sp, cfg, self.enc_out, self.enc_len, self.teacher)
+            self.grad_logits = torch.empty_like(self.logits)
+            self.grad_alphas = torch.empty_like(self.alphas)
+            with _capture(self.bwd, cache):
+                self.grads = torch.autograd.grad(
+                    (self.logits, self.alphas), (self.enc_out, *self.weights),
+                    (self.grad_logits, self.grad_alphas), allow_unused=True)
+        except BaseException:
+            # once no captured graph holds the pool, while it still holds
+            # memory (this pair's, freed with the failed pair), the
+            # allocator refuses another capture into it: the next capture
+            # starts a new pool
+            if all(isinstance(v, int) for v in cache.pairs.values()):
+                cache.pool = None
+            raise
+
+    def forward(self, enc_out, enc_len, teacher, weights
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        with torch.no_grad():
+            self.enc_out.copy_(enc_out)
+            self.enc_len.copy_(enc_len)
+            self.teacher.copy_(teacher)
+            torch._foreach_copy_(self.weights, list(weights))
+        self.fwd.replay()
+        return self.logits.detach().clone(), self.alphas.detach().clone()
+
+    def backward(self, grad_logits, grad_alphas) -> Tuple:
+        for static, grad in ((self.grad_logits, grad_logits),
+                             (self.grad_alphas, grad_alphas)):
+            if grad is None:
+                static.zero_()
+            else:
+                static.copy_(grad)
+        self.bwd.replay()
+        return tuple(g if g is None else g.clone() for g in self.grads)
+
+
+class _Graphed(torch.autograd.Function):
+    """A SpellerGraphs replay as an autograd node (the design of
+    torch.cuda.make_graphed_callables): inputs (cache, graphs, enc_out,
+    enc_len, teacher, *weights), outputs (logits, alphas)."""
+
+    @staticmethod
+    def forward(ctx, cache, graphs, enc_out, enc_len, teacher, *weights):
+        ctx.set_materialize_grads(False)
+        out = graphs.forward(enc_out, enc_len, teacher, weights)
+        cache.replays += 1
+        ctx.cache, ctx.graphs, ctx.replay = cache, graphs, cache.replays
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_logits, grad_alphas):
+        if ctx.replay != ctx.cache.replays:
+            raise RuntimeError(
+                "a later replay of the speller's graphs overwrote the "
+                "activations this backward needs")
+        grad_enc, *grad_w = ctx.graphs.backward(grad_logits, grad_alphas)
+        return (None, None, grad_enc, None, None, *grad_w)
+
+
+def graphed_loop(sp: Speller, cfg: Config, enc_out, enc_len, teacher
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The teacher-forced loop through its shape's graph pair, where
+    graph_eligible holds: the first EAGER_CALLS calls of a shape run
+    eager, the next captures the pair and replays it, later ones replay.
+    Counters: `las.speller.graph_captures`, and `las.speller.graph_steps`
+    for the decoder steps a replay ran."""
+    weights = [table[name] for table, name in _loop_slots(sp)]
+    cache = speller_graphs(sp)
+    key = graph_key(enc_out, teacher)
+    graphs = cache.pairs.get(key, 0)
+    if isinstance(graphs, int):
+        if graphs < EAGER_CALLS:
+            cache.pairs[key] = graphs + 1
+            return _teacher_loop(sp, cfg, enc_out, enc_len, teacher)
+        graphs = cache.pairs[key] = SpellerGraphs(
+            sp, cfg, enc_out, enc_len, teacher, weights, cache)
+        spans.count("las.speller.graph_captures")
+    spans.count("las.speller.graph_steps", teacher.shape[1])
+    return _Graphed.apply(cache, graphs, enc_out, enc_len, teacher,
+                          *weights)
 
 
 class LAS(nn.Module):

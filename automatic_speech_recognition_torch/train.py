@@ -57,7 +57,8 @@ the other processes of a data-parallel job), in which the program's
 coarse spans are named ranges; the log line names the trace's clock mark
 (utils/spans.py).  Every logging step's line gives the mean ms a step of
 each coarse train.* and las.* span since the last line, and the last
-line their totals over the run.
+line their totals over the run, with the share of the speller's decoder
+steps that CUDA graph replays ran (models/las.graphed_loop).
 
 Under torchrun (parallel/distributed.py) each process drives
 cuda:LOCAL_RANK (gloo with --device cpu), reads its rows of every global
@@ -209,6 +210,17 @@ def phase_ms(before: Dict, steps: int) -> str:
     """phase_report's spans as mean ms a step over `steps` steps."""
     return ", ".join(f"{k} {1e3 * v['total_s'] / max(steps, 1):.1f}"
                      for k, v in phase_report(before).items())
+
+
+def graph_note(before: Dict) -> str:
+    """The share of the decoder steps since the spans.totals() reading
+    `before` that the speller's graph replays ran, and its captures."""
+    got = spans.report(before, ("las.speller.",))
+    steps, replayed, captures = (
+        got.get(f"las.speller.{name}", {}).get("count", 0)
+        for name in ("steps", "graph_steps", "graph_captures"))
+    return (f"speller graphs replayed {replayed} of {steps} decoder steps "
+            f"({100 * replayed / max(steps, 1):.1f} %), {captures} captures")
 
 
 def clock_note() -> str:
@@ -444,8 +456,8 @@ def main(argv: Optional[Sequence[str]] = None, exec_launcher: bool = False
         signal.signal(sig, handler)
     if watchdog is not None:
         watchdog.stop()
-    log.info("done at step %d; timers: %s", global_step,
-             phase_report(span_start))
+    log.info("done at step %d; timers: %s; %s", global_step,
+             phase_report(span_start), graph_note(span_start))
     writer.close()
     history = {k: [float(x) for x in v] for k, v in history.items()}
     # the metrics are the global batch's on every rank: each host's first

@@ -2285,6 +2285,13 @@ def steps_per_sec(out: str) -> float:
     return float(hits[-1])
 
 
+def graph_share(out: str) -> str:
+    """train.main's last note of the speller's CUDA graph replays in a
+    log (models/las.graphed_loop)."""
+    hits = re.findall(r"speller graphs replayed [^;\n]*", out)
+    return hits[-1] if hits else "no note of the speller's graphs"
+
+
 def dp_flags(d: str) -> list:
     """The published train flags over the 8 s x 48 global batches of the
     shards in d, DP_STEPS steps."""
@@ -2339,7 +2346,9 @@ def dp_train(dev, card: str, d: str, world: int) -> int:
           f"{wall:.1f} s wall with start-up) vs {ms_plain:.2f} ms/step in "
           f"one process without torchrun; losses equal on every rank, vs "
           f"one process max rel diff {rel.max():.2e} over the {DP_STEPS} "
-          f"steps (first {rel[0]:.2e}); fused_frontend launches "
+          f"steps (first {rel[0]:.2e}); rank 0: {graph_share(out)}; one "
+          f"process: {graph_share(chr(10).join(log_lines))}; "
+          f"fused_frontend launches "
           f"{sum(r['launches'] for r, _ in ranks)} + {launches}")
     return sum(r["launches"] for r, _ in ranks) + launches
 
@@ -2477,7 +2486,8 @@ def direct_train(card: str, d: str, n: int) -> int:
         print(f"train --device cuda, one command over {n} GPUs [{card}]: "
               f"{mesh}; deterministic algorithms: its {len(got)} losses vs "
               f"{n} hand-launched ranks' max rel diff {rel.max():.3e} "
-              f"(bit-equal: {got == want}); {wall:.1f} s wall with start-up")
+              f"(bit-equal: {got == want}); {wall:.1f} s wall with "
+              f"start-up; rank 0: {graph_share(out)}")
         if got != want:
             raise AssertionError(f"one command's losses {got} != the "
                                  f"ranks' {want}")
@@ -3341,6 +3351,7 @@ def phase_multihost(dev, card: str, d: str) -> int:
           f"both hosts: {got[0] == got[1]}; vs one process "
           f"{[round(x, 6) for x in want]}: max rel diff {rel.max():.2e} "
           f"(first {rel[0]:.2e}); {wall:.1f} s wall with start-up; "
+          f"host 0: {graph_share(res[0][1])}; "
           f"fused_frontend launches in the ranks {launches} + {one_launches}")
     if (mesh not in res[0][1] or got[0] != got[1] or rel[0] > DP_LOSS_RTOL
             or not np.all(np.isfinite(got[0]))

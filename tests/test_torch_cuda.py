@@ -6,8 +6,13 @@ one.  The file imports no JAX, so it also runs where JAX is absent:
 (--noconftest: tests/conftest.py imports JAX to pin it to the CPU.)
 The fused frontend kernel is held to its plain PyTorch version at
 rtol 1e-4 / atol 2e-4, the tolerance tests/test_pallas_frontend.py holds
-the TPU kernel to (float32 sums in another order).
+the TPU kernel to (float32 sums in another order).  The teacher-forced
+speller's CUDA graph pair (models/las.graphed_loop) is held to the eager
+loop bit for bit: it replays the kernels the loop launches.
 """
+
+import collections
+import threading
 
 import numpy as np
 import pytest
@@ -383,3 +388,249 @@ def test_kernel_subnormal_frame_energy(cuda, feat_type):
                                           **kw)
         fp, _ = frontend.extract_features(audio, audiolen, **kw)
         torch.testing.assert_close(fk, fp, rtol=RTOL, atol=ATOL)
+
+
+# ------------------------------------------- the speller's CUDA graphs
+
+
+def _graph_cfg(**kw):
+    base = dict(unit="char", vocab_size=30, feat_dim=13, enc_type="pblstm",
+                enc_units=32, num_enc_layers=1, dec_units=64,
+                num_dec_layers=2, embedding_size=16, attention_size=24,
+                mode="add", loc_kernel_size=9, loc_num_channels=4,
+                dropout_rate=0.0, scheduled_sampling=False)
+    base.update(kw)
+    return Config(**base)
+
+
+def _speller_inputs(cfg, dev, B, T, L, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    enc = torch.randn(B, T, las.enc_out_dim(cfg), device=dev, generator=g)
+    enc_len = torch.randint(T // 2, T + 1, (B,), device=dev, generator=g,
+                            dtype=torch.int32)
+    enc_len[0] = T
+    ids = torch.randint(3, cfg.vocab_size, (B, L), device=dev, generator=g,
+                        dtype=torch.int32)
+    ids[1, L // 2:] = 0                             # a PAD tail
+    return enc, enc_len, ids
+
+
+def _speller_step(model, cfg, loop, inputs, alphas_in_loss):
+    """logits, alphas, the loss and the gradients of enc_out and of every
+    speller weight (the float32 masters) through `loop`."""
+    enc, enc_len, ids = inputs
+    params = [p for n, p in model.speller.named_parameters()
+              if not n.startswith("ctc_head")]
+    enc = enc.to(las.compute_dtype(cfg)).requires_grad_()
+    with las.compute_cast(cfg, model):
+        logits, alphas = loop(model.speller, cfg, enc, enc_len, ids)
+        loss = las.attention_loss(logits.float(), ids, cfg)
+        if alphas_in_loss:
+            loss = loss + alphas.float().square().mean()
+        grads = torch.autograd.grad(loss, [enc, *params])
+    return [logits, alphas, loss, *grads]
+
+
+# the train cell's speller (bench_torch/configs/las_pblstm_chan2016.json):
+# pblstm listener of 2 x 256, 2 x 512 decoder, content attention, 44 ids;
+# two of its batch shapes (rows, encoder frames, decoder steps): the
+# shortest bucket's and the longest's
+WIDTHS = {
+    "toy": ({}, {"A": (6, 23, 17), "B": (4, 31, 12)}),
+    "cell": (dict(vocab_size=44, feat_dim=40, enc_units=256,
+                  num_enc_layers=3, dec_units=512, embedding_size=128,
+                  attention_size=128),
+             {"A": (96, 80, 96), "B": (48, 214, 219)}),
+}
+
+
+@pytest.fixture
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms: location attention's conv1d
+    backward otherwise may sum in another order run to run (at the train
+    cell's width it does), in the eager loop as in a replay."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["toy", "cell"])
+@pytest.mark.parametrize("mode", ["add", "loc"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_speller_matches_the_eager_loop(cuda, cudnn_deterministic,
+                                                dtype, mode, width):
+    """Shapes A, A, B, B, A, B, A, B in turn (two eager calls, then a
+    capture and a replay, then replays; both shapes' pairs in one memory
+    pool), at toy widths and at the train cell's: logits, alphas, the
+    loss and every gradient equal the eager loop's bit for bit, with and
+    without the alphas in the loss; outputs a step returned stay as they
+    were after a later replay of their shape; one capture a shape."""
+    from automatic_speech_recognition_torch.utils import spans
+    widths, shapes = WIDTHS[width]
+    cfg = _graph_cfg(dtype=dtype, mode=mode, **widths)
+    model = las.init(cfg, torch.Generator().manual_seed(0), cuda).train()
+    before = spans.totals()
+    kept = []
+    for i, name in enumerate("AABBABAB"):
+        inputs = _speller_inputs(cfg, cuda, *shapes[name], seed=i)
+        got = _speller_step(model, cfg, las.graphed_loop, inputs, i % 2)
+        want = _speller_step(model, cfg, las._teacher_loop, inputs, i % 2)
+        for k, (a, b) in enumerate(zip(got, want)):
+            assert a.dtype == b.dtype and torch.equal(a, b), (i, name, k)
+        kept.append((got[:2], [t.clone() for t in got[:2]]))
+    assert all(torch.equal(a, b) for out, copy in kept
+               for a, b in zip(out, copy))
+    got = spans.report(before, ("las.speller.",))
+    assert got["las.speller.graph_captures"] == {"count": 2}
+    assert got["las.speller.graph_steps"] == {
+        "count": 2 * (shapes["A"][2] + shapes["B"][2])}
+    assert len(las.speller_graphs(model.speller).pairs) == 2
+
+
+def _graphs_against_eager(model, cfg, dev, shapes, order, alphas_in_loss):
+    """Each call of `order` (names of `shapes`) through graphed_loop and
+    through the eager loop on the same inputs: every output and gradient
+    equal bit for bit."""
+    for i, name in enumerate(order):
+        inputs = _speller_inputs(cfg, dev, *shapes[name], seed=i)
+        got = _speller_step(model, cfg, las.graphed_loop, inputs,
+                            alphas_in_loss)
+        want = _speller_step(model, cfg, las._teacher_loop, inputs,
+                             alphas_in_loss)
+        for k, (a, b) in enumerate(zip(got, want)):
+            assert a.dtype == b.dtype and torch.equal(a, b), (i, name, k)
+
+
+@pytest.mark.cuda
+def test_graph_capture_under_a_profiler_and_after_it(cuda):
+    """A shape captured while torch.profiler traces the host and the card,
+    replayed under it and after it stops, and another shape captured
+    after it stopped: every call equals the eager loop bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+    from automatic_speech_recognition_torch.utils import spans
+    cfg = _graph_cfg()
+    model = las.init(cfg, torch.Generator().manual_seed(0), cuda).train()
+    shapes = WIDTHS["toy"][1]
+    before = spans.totals()
+    _graphs_against_eager(model, cfg, cuda, shapes, "AA", True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        assert spans.profiling()
+        _graphs_against_eager(model, cfg, cuda, shapes, "AAB", True)
+    assert not spans.profiling()
+    _graphs_against_eager(model, cfg, cuda, shapes, "ABBBA", True)
+    got = spans.report(before, ("las.speller.",))
+    assert got["las.speller.graph_captures"] == {"count": 2}
+    assert got["las.speller.graph_steps"] == {"count": 4 * 17 + 2 * 12}
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_leaves_the_next_one_working(cuda, monkeypatch):
+    """A capture that raises, after its forward graph was captured, frees
+    the only graph of the cache's memory pool while the pool still holds
+    its memory; the allocator refuses a capture into such a pool.  The
+    next call of the shape captures into a new pool and equals the eager
+    loop bit for bit."""
+    import gc
+    cfg = _graph_cfg()
+    model = las.init(cfg, torch.Generator().manual_seed(0), cuda).train()
+    shapes = WIDTHS["toy"][1]
+    _graphs_against_eager(model, cfg, cuda, shapes, "AA", False)
+    cache = las.speller_graphs(model.speller)
+    eager, pools = las._teacher_loop, []
+
+    def failing_once(*args):
+        out = eager(*args)
+        if torch.cuda.is_current_stream_capturing() and not pools:
+            pools.append(cache.pool)
+            raise RuntimeError("injected failure inside the capture")
+        return out
+
+    monkeypatch.setattr(las, "_teacher_loop", failing_once)
+    inputs = _speller_inputs(cfg, cuda, *shapes["A"], seed=2)
+    with pytest.raises(RuntimeError, match="injected"):
+        _speller_step(model, cfg, las.graphed_loop, inputs, False)
+    gc.collect()
+    assert pools[0] is not None and cache.pool is None
+    monkeypatch.setattr(las, "_teacher_loop", eager)
+    _graphs_against_eager(model, cfg, cuda, shapes, "AA", False)
+    assert [type(v) for v in cache.pairs.values()] == [las.SpellerGraphs]
+    assert cache.pool is not None and cache.pool != pools[0]
+
+
+@pytest.mark.cuda
+def test_graph_capture_beside_a_thread_copying_to_the_card(cuda):
+    """A capture while another thread copies pageable batches to the card,
+    as the loader's DevicePrefetcher does: it succeeds, and the replay
+    equals the eager loop bit for bit."""
+    cfg = _graph_cfg()
+    model = las.init(cfg, torch.Generator().manual_seed(0), cuda).train()
+    host = np.random.default_rng(0).standard_normal(
+        (48, 200_000)).astype(np.float32)
+    started, stop, copies = threading.Event(), threading.Event(), []
+    index = torch.cuda.current_device()
+
+    def copier():
+        torch.cuda.set_device(index)
+        while not stop.is_set():
+            copies.append(float(torch.from_numpy(host).to(cuda)[0, 0]))
+            started.set()
+
+    thread = threading.Thread(target=copier, daemon=True)
+    thread.start()
+    try:
+        assert started.wait(timeout=60)
+        for i in range(4):          # eager, eager, capture, replay
+            inputs = _speller_inputs(cfg, cuda, 8, 40, 30, seed=i)
+            got = _speller_step(model, cfg, las.graphed_loop, inputs, False)
+            want = _speller_step(model, cfg, las._teacher_loop, inputs,
+                                 False)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), i
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+    assert not thread.is_alive() and len(copies) > 1
+    assert len(las.speller_graphs(model.speller).pairs) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctc", [False, True])
+def test_graphed_train_steps_match_eager_ones(cuda, cudnn_deterministic,
+                                              monkeypatch, ctc):
+    """N train steps of one batch shape (the listener, the loss with and
+    without joint CTC, whose head shares enc_out's gradient, Adam):
+    the state that replays the speller's graphs and one that runs the
+    eager loop stay equal bit for bit; the counters read one capture and
+    (N - 2) x steps replayed decoder steps (two eager calls first)."""
+    from automatic_speech_recognition_torch.training import trainer
+    from automatic_speech_recognition_torch.utils import spans
+    cfg = _graph_cfg(lr=1e-2, ctc=ctc)
+    rng = np.random.default_rng(3)
+    B, T, L, N = 6, 64, 19, 4
+    feats = rng.standard_normal((N, B, T, 13, 3)).astype(np.float32)
+    y = rng.integers(3, 29, (N, B, L)).astype(np.int32)
+    y[:, 2, 11:] = 0
+    states = [trainer.create_train_state(cfg, cuda) for _ in range(2)]
+    counted = collections.Counter()
+    for k in range(N):
+        batch = (torch.from_numpy(feats[k]).to(cuda),
+                 torch.full((B,), T, dtype=torch.int32, device=cuda),
+                 torch.from_numpy(y[k]).to(cuda),
+                 torch.from_numpy((y[k] != 0).sum(1)).to(cuda))
+        before = spans.totals()
+        got = trainer.train_step(states[0], batch, cfg)
+        counted.update({k: v["count"] for k, v in spans.report(
+            before, ("las.speller.",)).items() if "count" in v})
+        with monkeypatch.context() as m:
+            m.setattr(las, "graph_eligible", lambda *a: False)
+            want = trainer.train_step(states[1], batch, cfg)
+        for name in ("loss", "grad_norm", "att_peak", "sample_ids",
+                     "sample_alphas"):
+            assert torch.equal(got[name], want[name]), (k, name)
+        for a, b in zip(states[0].model.parameters(),
+                        states[1].model.parameters()):
+            assert torch.equal(a, b), k
+    assert counted == {"las.speller.steps": N * L,
+                       "las.speller.graph_captures": 1,
+                       "las.speller.graph_steps": (N - 2) * L}

@@ -192,6 +192,9 @@ def test_train_cli_traces_and_logs_the_spans(tmp_path, rng, capsys):
     last = out.splitlines()[-1]
     assert "done at step 11; timers:" in last and "'train.step': {" in last
     assert "'train.checkpoint': {'total_s'" in last
+    # the CPU runs the eager loop: no decoder step of a graph replay
+    assert "speller graphs replayed 0 of " in last
+    assert "decoder steps (0.0 %), 0 captures" in last
 
 
 def test_a_greedy_recognizer_call_records_its_layers():

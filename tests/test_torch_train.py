@@ -448,3 +448,182 @@ def test_unported_training_paths_raise(rng):
                                       batch, cfg)
     with pytest.raises(NotImplementedError, match="Not ported"):
         ttrainer.train_multi_step(ts, None, cfg, 4)
+
+
+# ------------------------------------------- the speller's CUDA graphs
+
+
+def _split_speller(model):
+    from automatic_speech_recognition_torch.parallel import \
+        tensor_parallel as tp
+    tp.shard_(model, {"speller.attention.w_s.weight": 0},
+              tp.DeviceAxis([CPU, CPU]))
+
+
+@pytest.mark.parametrize("device,change,tf_rate,eligible", [
+    ("cuda", {}, 1.0, True),
+    ("cpu", {}, 1.0, False),
+    ("cuda", {"dropout_rate": 0.1}, 1.0, False),
+    ("cuda", {"add_vn": True}, 1.0, False),
+    ("cuda", {}, 0.9, False),
+    ("cuda", {}, torch.tensor(1.0), False),
+    ("cuda", {"remat": True}, 1.0, False),
+    ("cuda", {"split": True}, 1.0, False),
+    ("cuda", {"no_grad": True}, 1.0, False),
+    ("cuda", {"enc_out_no_grad": True}, 1.0, False),
+    ("cuda", {"frozen_weight": True}, 1.0, False),
+    ("cuda", {"capturing": True}, 1.0, False),
+])
+def test_graph_eligibility(monkeypatch, device, change, tf_rate, eligible):
+    """The graph pair engages on a CUDA device under pure teacher forcing
+    (a float tf_rate >= 1) with nothing drawn in the loop, no remat, no
+    split speller, where autograd records the loop (grad mode, enc_out and
+    every weight requiring a gradient) and outside another capture; every
+    other case takes the eager loop.  (A stand-in for enc_out needs no
+    card: the rule reads its device and requires_grad.)"""
+    import types
+    change = dict(change)
+    flags = {k: change.pop(k, False) for k in (
+        "split", "no_grad", "enc_out_no_grad", "frozen_weight", "capturing")}
+    cfg = small_cfg(**change)
+    model = tlas.init(cfg, torch.Generator().manual_seed(0), CPU)
+    if flags["split"]:
+        _split_speller(model)
+    if flags["frozen_weight"]:
+        model.speller.attention.w_s.weight.requires_grad_(False)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: flags["capturing"])
+    enc_out = types.SimpleNamespace(device=torch.device(device),
+                                    requires_grad=not flags["enc_out_no_grad"])
+    with torch.set_grad_enabled(not flags["no_grad"]):
+        got = tlas.graph_eligible(model.speller, cfg, tf_rate, enc_out)
+    assert got is eligible
+
+
+@pytest.mark.parametrize("change", [{}, {"dropout_rate": 0.1},
+                                    {"add_vn": True},
+                                    {"scheduled_sampling": True},
+                                    {"remat": True}, {"split": True}])
+def test_eager_loop_counts_every_step_and_no_graph_step(rng, change):
+    """On the CPU, and with dropout, variational noise, scheduled sampling,
+    remat or a split speller, train steps run the eager loop:
+    `las.speller.steps` counts every decoder step, no replay or capture is
+    counted, and the speller's graph cache stays empty."""
+    from automatic_speech_recognition_torch.utils import spans
+    change = dict(change)
+    split = change.pop("split", False)
+    cfg = small_cfg(warmup_step=0, max_step=4, min_rate=0.5, **change)
+    ts = ttrainer.create_train_state(cfg, CPU)
+    if split:
+        _split_speller(ts.model)
+    batch = tuple(map(_t, make_batch(rng)))
+    before = spans.totals()
+    for _ in range(3):
+        ttrainer.train_step(ts, batch, cfg)
+    got = spans.report(before, ("las.speller.",))
+    assert got["las.speller.steps"] == {"count": 3 * batch[2].shape[1]}
+    assert "las.speller.graph_steps" not in got
+    assert "las.speller.graph_captures" not in got
+    assert not tlas.speller_graphs(ts.model.speller).pairs
+
+
+def test_graph_key_and_the_cache_lifetime(rng):
+    """A pair is keyed by (rows, T_enc, decoder steps, dtype, device), not
+    by values; the cache lives as long as its speller: freeing the model
+    frees it (and with it the graphs and their memory pools)."""
+    import gc
+    import weakref
+    enc = torch.zeros(3, 11, 32)
+    ids = torch.zeros(3, 7, dtype=torch.int32)
+    key = tlas.graph_key(enc, ids)
+    assert key == (3, 11, 7, torch.float32, CPU)
+    assert tlas.graph_key(torch.randn(3, 11, 32), ids + 5) == key
+    assert len({key, tlas.graph_key(enc[:2], ids[:2]),
+                tlas.graph_key(enc[:, :10], ids),
+                tlas.graph_key(enc, ids[:, :6]),
+                tlas.graph_key(enc.bfloat16(), ids)}) == 5
+    model = tlas.init(small_cfg(), torch.Generator().manual_seed(0), CPU)
+    cache = tlas.speller_graphs(model.speller)
+    assert tlas.speller_graphs(model.speller) is cache
+    cache.pairs[key] = torch.empty(1 << 20)
+    kept = weakref.ref(cache.pairs[key])
+    held = len(tlas._GRAPHS)
+    del model, cache
+    gc.collect()
+    assert len(tlas._GRAPHS) == held - 1 and kept() is None
+
+
+class _EagerGraphs:
+    """SpellerGraphs' interface on the CPU: a "replay" runs the eager loop
+    on detached copies of the inputs, as the graphs read theirs."""
+
+    def __init__(self, sp, cfg, enc_out, enc_len, teacher, weights, cache):
+        self.sp, self.cfg = sp, cfg
+        self.slots = tlas._loop_slots(sp)
+
+    def forward(self, enc_out, enc_len, teacher, weights):
+        self.inputs = [t.detach().requires_grad_()
+                       for t in (enc_out, *weights)]
+        with torch.enable_grad(), tlas._tensors_in(self.slots,
+                                                   self.inputs[1:]):
+            self.out = tlas._teacher_loop(self.sp, self.cfg, self.inputs[0],
+                                          enc_len, teacher)
+        return tuple(o.detach().clone() for o in self.out)
+
+    def backward(self, grad_logits, grad_alphas):
+        grads = [torch.zeros_like(o) if g is None else g
+                 for o, g in zip(self.out, (grad_logits, grad_alphas))]
+        return torch.autograd.grad(self.out, self.inputs, grads,
+                                   allow_unused=True)
+
+
+def test_second_sight_capture_and_the_graphed_node(rng, monkeypatch):
+    """graphed_loop with a stand-in for the graph pair on the CPU: the
+    first two calls of a shape run eager, the third captures (one
+    capture) and replays, later ones replay; the autograd node gives the
+    eager
+    loop's logits, alphas and gradients (enc_out and every speller
+    weight) bit for bit; a second shape gets its own pair; and a backward
+    whose activations a later replay of either shape overwrote raises."""
+    from automatic_speech_recognition_torch.utils import spans
+    cfg = small_cfg(mode="add")
+    monkeypatch.setattr(tlas, "SpellerGraphs", _EagerGraphs)
+    model = tlas.init(cfg, torch.Generator().manual_seed(0), CPU).train()
+    sp = model.speller
+    weights = [p for n, p in sp.named_parameters()
+               if not n.startswith("ctc_head")]
+
+    def step(B, T, L, graphed, seed):
+        g = torch.Generator().manual_seed(seed)
+        enc = torch.randn(B, T, tlas.enc_out_dim(cfg), generator=g,
+                          requires_grad=True)
+        enc_len = torch.tensor([T] * (B - 1) + [T - 3], dtype=torch.int32)
+        ids = torch.randint(3, cfg.vocab_size, (B, L), generator=g,
+                            dtype=torch.int32)
+        fn = tlas.graphed_loop if graphed else tlas._teacher_loop
+        logits, alphas = fn(sp, cfg, enc, enc_len, ids)
+        loss = (logits.square().mean() + alphas.mean()
+                if B == 3 else logits.logsumexp(-1).mean())
+        return [logits, alphas, *torch.autograd.grad(loss, [enc, *weights])]
+
+    before = spans.totals()
+    for i, shape in enumerate([(3, 9, 5)] * 4 + [(2, 6, 4)] * 3):
+        for a, b in zip(step(*shape, True, i), step(*shape, False, i)):
+            assert torch.equal(a, b), (i, shape)
+    got = spans.report(before, ("las.speller.",))
+    assert got["las.speller.graph_captures"] == {"count": 2}
+    assert got["las.speller.graph_steps"] == {"count": 2 * 5 + 1 * 4}
+    pairs = tlas.speller_graphs(sp).pairs
+    assert sorted(k[:3] for k in pairs) == [(2, 6, 4), (3, 9, 5)]
+    assert all(isinstance(v, _EagerGraphs) for v in pairs.values())
+    enc = torch.randn(2, 6, tlas.enc_out_dim(cfg), requires_grad=True)
+    args = (torch.tensor([6, 6]), torch.ones(2, 4, dtype=torch.int32))
+    first, _ = tlas.graphed_loop(sp, cfg, enc, *args)
+    # another shape's forward shares the pool: it overwrites as well
+    tlas.graphed_loop(sp, cfg, torch.randn(3, 9, enc.shape[2],
+                                           requires_grad=True),
+                      torch.tensor([9, 9, 9]),
+                      torch.ones(3, 5, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="later replay"):
+        first.sum().backward()
+    tlas._GRAPHS.pop(sp)
