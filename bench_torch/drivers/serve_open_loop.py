@@ -26,7 +26,7 @@ import torch
 from automatic_speech_recognition_torch.api import Recognizer
 
 from bench_torch import harness, stats, synth, traffic, weights, work
-from bench_torch.reference import las as ref
+from bench_torch.reference.las import num_frames
 from bench_torch.trace import Stretch
 
 GRACE_S = 60.0
@@ -65,7 +65,7 @@ class Served(Recognizer):
                                          pad_seconds, worker)
             fut.result()
         if self.recording:
-            frames = ref.num_frames(self._width, self.run.values)
+            frames = num_frames(self._width, self.run.values)
             steps = max(int(self.cfg.convert_rate * max(frames, 1)), 1)
             self.run.span("greedy.batch", time.perf_counter() - t, steps)
         return fut
@@ -107,7 +107,8 @@ def run(run: harness.Run) -> None:
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     phases = [("imports", time.perf_counter())]
     cfg = harness.program_config(values)
-    w = weights.make(values, run.seed, dev)
+    plain = harness.reference(run.config)
+    w = weights.make(plain.param_spec(values), run.seed, dev)
     model = harness.build_model(cfg, w, dev).eval()
     rec = Served(model, cfg, None, str(dev), run=run)
     b = mix["batcher"]
@@ -203,8 +204,8 @@ def run(run: harness.Run) -> None:
     flops = 0.0
     for i in range(n):
         if done[i] is not None and done[i] <= cut:
-            frames = ref.num_frames(int(lengths[i]), values)
-            flops += work.forward_flops(values, frames,
+            frames = num_frames(int(lengths[i]), values)
+            flops += work.forward_flops(plain, values, frames,
                                         work.step_budget(values, frames))
     run.work.update(flops=flops, peak=work.peak(values))
     run.memory_peak_bytes = (torch.cuda.max_memory_allocated(dev)
@@ -224,7 +225,7 @@ def run(run: harness.Run) -> None:
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    check(run, w, signals, out, kept, order)
+    check(run, plain, w, signals, out, kept, order)
 
 
 def sample_order(run: harness.Run, lengths) -> list:
@@ -236,14 +237,13 @@ def sample_order(run: harness.Run, lengths) -> list:
     return [longest] + [int(i) for i in rest]
 
 
-def check(run: harness.Run, w, signals, out, kept, order) -> None:
+def check(run: harness.Run, plain, w, signals, out, kept, order) -> None:
     """The reference over a seeded sample of finished requests, the
     longest among them, teacher-forced on their served tokens: the widest
     gap by which a served token's logit lies below the reference's best,
     and the widest difference between the served logits and the
     reference's."""
     values, dev = run.values, run.device
-    plain = harness.reference(run.config)
     sample = [i for i in order if i in kept][:run.mix["check"]["requests"]]
     if not sample:
         run.check("served_gap", float("inf"))

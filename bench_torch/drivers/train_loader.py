@@ -29,7 +29,7 @@ import torch
 
 from bench_torch import harness, synth, traffic, weights, work
 from bench_torch.drivers.serve_open_loop import setup_phases
-from bench_torch.reference import las as ref
+from bench_torch.reference.las import frame_params, num_frames
 from bench_torch.trace import Stretch
 
 FRONTEND_KERNELS = ("features_kernel", "cmvn_stats_kernel",
@@ -83,7 +83,8 @@ def run(run: harness.Run) -> None:
     sr = values["sample_rate"]
     phases = [("imports", time.perf_counter())]
     cfg = harness.program_config(values, seed=run.seed)
-    w = weights.make(values, run.seed, dev)
+    plain = harness.reference(run.config)
+    w = weights.make(plain.param_spec(values), run.seed, dev)
     tmp = tempfile.mkdtemp(prefix="bench_train_")
     try:
         keys = write_shards(run, tmp)
@@ -104,12 +105,12 @@ def run(run: harness.Run) -> None:
             """The prefetcher's copy to the device (make_mesh_train_step's
             shard_batch); notes what the batch holds, in feed order."""
             lens, toks = batch[1], batch[3]
-            frames = [ref.num_frames(int(n), values) for n in lens]
-            flops = 3 * sum(work.forward_flops(values, f, int(t))
+            frames = [num_frames(int(n), values) for n in lens]
+            flops = 3 * sum(work.forward_flops(plain, values, f, int(t))
                             for f, t in zip(frames, toks))
             S = batch[0].shape[1]
             fed.append((float(lens.sum()) / sr, flops,
-                        (len(lens), S, max(ref.num_frames(S, values), 1))))
+                        (len(lens), S, max(num_frames(S, values), 1))))
             return tuple(host_tensor(x).to(dev) for x in batch)
 
         feed = DevicePrefetcher(iter(loader), put, depth=cfg.prefetch_depth)
@@ -128,8 +129,8 @@ def run(run: harness.Run) -> None:
                 metrics = trainer.train_step(ts, given, cfg)
             return batch, metrics, wait, fed.popleft()
 
-        widths = {b * ref.frame_params(values)[1] + ref.frame_params(values)[0]
-                  for b in values["bucket_boundaries_train"]}
+        flen, fstep = frame_params(values)
+        widths = {b * fstep + flen for b in values["bucket_boundaries_train"]}
         n_ref = mix["check"]["steps"]
         first, losses, seen = [], [], set()
         first_grad = change = None
@@ -189,12 +190,12 @@ def run(run: harness.Run) -> None:
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
-        check(run, w, first, keys, losses, first_grad, change)
+        check(run, plain, w, first, keys, losses, first_grad, change)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def check(run, w, first, keys, losses, first_grad, change) -> None:
+def check(run, plain, w, first, keys, losses, first_grad, change) -> None:
     values = run.values
     batches, unknown = [], 0
     for audio, lens, y, _ in first:
@@ -203,7 +204,6 @@ def check(run, w, first, keys, losses, first_grad, change) -> None:
         for row, n in zip(host, lens.cpu().numpy()):
             unknown += (int(n), row[:16].tobytes()) not in keys
         batches.append((audio, lens, y))
-    plain = harness.reference(run.config)
     got = plain.train_steps(w, values, batches)
     gaps = compare(losses, first_grad, change, got)
     run.note(f"reference losses {got['loss']}")

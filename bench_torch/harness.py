@@ -20,6 +20,20 @@ ROOT = HERE.parent
 CACHE = HERE / "_cache"
 
 
+# what no run may load: JAX, its libraries and the JAX package, compared by
+# whole top-level names (the port's own name begins with the JAX package's)
+FOREIGN = frozenset({"jax", "jaxlib", "flax", "automatic_speech_recognition_tpu"})
+
+
+class Refused(RuntimeError):
+    """A run that may print no result."""
+
+
+def foreign_modules() -> list:
+    """The top-level names of FOREIGN that `sys.modules` holds now."""
+    return sorted({name.split(".")[0] for name in list(sys.modules)} & FOREIGN)
+
+
 def load_benchmark() -> dict:
     return json.loads((ROOT / "BENCHMARK.json").read_text())
 

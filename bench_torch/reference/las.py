@@ -1,4 +1,7 @@
-"""Plain PyTorch reference of the LAS recognizer the benchmark measures.
+"""Plain PyTorch reference of the LAS recognizer the benchmark measures,
+and the reference module (see reference/__init__.py) that every LAS
+configuration names: its parameters, its forward operations and its
+check.
 
 Written from the published description of the recipe and of its port,
 with no import of the program: weights come in as a dict of tensors keyed
@@ -148,6 +151,68 @@ def trainable(name: str) -> bool:
 
 def _ceil_half(x):
     return (x + x % 2) // 2
+
+
+# -------------------------------------------------------------------- work
+
+def _birnn_flops(T: int, d_in: int, u: int) -> float:
+    return 2 * T * (2 * d_in * u + 2 * u * u)
+
+
+def listener_flops(c: dict, frames: int) -> float:
+    """Forward operations of the listener over `frames` real frames."""
+    u, D = c["enc_units"], c["feat_dim"]
+    if c["enc_type"] == "cnn":
+        C = c["num_enc_channels"]
+        t1, d1 = _ceil_half(frames), _ceil_half(D)
+        t2, d2 = _ceil_half(t1), _ceil_half(d1)
+        ops = 2 * t1 * d1 * C * 27 + 2 * t2 * d2 * C * C * 9
+        d = d2 * C
+        for _ in range(c["num_enc_layers"]):
+            ops += _birnn_flops(t2, d, u) + 2 * t2 * 2 * u * u
+            d = u
+        return ops
+    T = frames
+    ops = _birnn_flops(T, 3 * D, u) + 2 * T * 2 * u * 2 * u
+    for _ in range(c["num_enc_layers"]):
+        ops += _birnn_flops(T, 2 * u, u)
+        T = _ceil_half(T)
+        ops += 2 * T * 4 * u * 2 * u
+    return ops
+
+
+def enc_frames(c: dict, frames: int) -> int:
+    t = frames
+    for _ in range(2 if c["enc_type"] == "cnn" else c["num_enc_layers"]):
+        t = _ceil_half(t)
+    return t
+
+
+def speller_step_flops(c: dict, t_enc: int) -> float:
+    """One decoder step for one row attending over t_enc frames."""
+    h = enc_dim(c)
+    A, U, L, E, V = (c["attention_size"], c["dec_units"],
+                     c["num_dec_layers"], c["embedding_size"],
+                     c["vocab_size"])
+    ops = 2 * L * U * A + 3 * t_enc * A + 3 * t_enc + 2 * t_enc * h
+    if c["mode"] == "loc":
+        C, K = c["loc_num_channels"], c["loc_kernel_size"]
+        ops += 2 * t_enc * C * K + 2 * t_enc * C * A
+    d = E + h
+    for _ in range(L):
+        ops += 2 * (d + U) * U
+        d = U
+    return ops + 2 * U * V
+
+
+def model_flops(c: dict, frames: int, steps: int) -> float:
+    """Listener, the attention's encoder projection and `steps`
+    teacher-forced or greedy decoder steps of one utterance (the
+    frontend is work.py's)."""
+    t = enc_frames(c, frames)
+    return (listener_flops(c, frames)
+            + 2 * t * enc_dim(c) * c["attention_size"]
+            + steps * speller_step_flops(c, t))
 
 
 # --------------------------------------------------------------- frontend

@@ -15,7 +15,9 @@ come out false.  --fault <name> plants one of the drivers' faults under
 the timed path (alter_token, state_unchanged, half_batch), for the
 readings a limit is set from.  The last line of standard output is the
 result; the numbers compared, each beside its limit, are the last lines
-of standard error and the last key of the result.
+of standard error and the last key of the result.  A run that has loaded
+JAX, jaxlib, flax or the JAX package by then prints no result, names them
+on standard error and exits with 3.
 """
 
 from __future__ import annotations
@@ -102,6 +104,11 @@ def execute(run: harness.Run, device) -> str:
         info["window_s"] = run.traced["window_s"]
         breakdown = {"device_ops": run.traced["device_ops"],
                      "idle_gaps": run.traced["idle_gaps"]}
+    # once the window, the check and the readers are done: whatever the
+    # port, a library it uses or a module named at run time loaded
+    found = harness.foreign_modules()
+    if found:
+        raise harness.Refused("the run loaded " + ", ".join(found))
     return harness.result_line(run, metrics, info, breakdown)
 
 
@@ -120,7 +127,11 @@ def main(argv=None) -> int:
         print(f"the cell needs {run.chips} GPUs, "
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 2
-    line = execute(run, torch.device("cuda:0"))
+    try:
+        line = execute(run, torch.device("cuda:0"))
+    except harness.Refused as e:
+        print(f"no result: {e}", file=sys.stderr)
+        return 3
     harness.print_checks(run)
     print(line, flush=True)
     return 0

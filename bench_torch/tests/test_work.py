@@ -1,7 +1,8 @@
 """The yardstick's operation and byte counts: the frontend's, and the
-LAS counts against a hand count and against torch's FLOP counter on the
-reference at a tiny configuration."""
+LAS reference module's counts against a hand count and against torch's
+FLOP counter on the reference at a tiny configuration."""
 
+import hashlib
 import math
 
 import torch
@@ -63,7 +64,7 @@ TINY = dict(vocab_size=11, feat_dim=5, num_enc_channels=3, enc_units=6,
 
 def test_las_count_against_a_hand_count():
     c = dict(CNN, **TINY)
-    assert work.forward_flops(c, 37, 9) == hand_count_cnn(c, 37, 9)
+    assert work.forward_flops(ref, c, 37, 9) == hand_count_cnn(c, 37, 9)
     assert work.step_budget(c, 100) == 12
     assert work.step_budget(CNN, 3598) == 431
 
@@ -71,9 +72,33 @@ def test_las_count_against_a_hand_count():
 def test_listener_count_against_torch_flop_counter():
     for base in (CNN, PBL):
         c = dict(base, **TINY)
-        w = weights.make(c, 3, torch.device("cpu"))
+        w = weights.make(ref.param_spec(c), 3, torch.device("cpu"))
         feats = torch.randn(2, 41, c["feat_dim"], 3)
         with FlopCounterMode(display=False) as fc:
             ref.listen(w, c, feats, torch.tensor([41, 30]))
-        assert fc.get_total_flops() == 2 * work.listener_flops(c, 41)
+        assert fc.get_total_flops() == 2 * ref.listener_flops(c, 41)
 
+
+
+# digests and counts of the LAS arithmetic as the parent of the change
+# that moved it into the reference module gave them: the weights drawn in
+# the same order, and the same counts, exactly
+PINNED_WEIGHTS = {
+    1: "b2c21f017700ac3ccd7c2d894178229ffb2b8cb675ec00ce73a2b90032ccd97b",
+    2: "16b6d65c6fe7315159acbab24c7a39b8b9f4594002567b017e61fa7a1a71ee35"}
+PINNED_FLOPS = {"PBL": [9095574.0, 2271194013.0, 6183003429.0],
+                "CNN": [30664211.0, 3466024260.0, 10264481880.0]}
+SHAPES = ((1, 1), (639, 77), (1709, 231))
+
+
+def test_las_weights_and_counts_are_pinned():
+    for seed, digest in PINNED_WEIGHTS.items():
+        w = weights.make(ref.param_spec(PBL), seed, torch.device("cpu"))
+        h = hashlib.sha256()
+        for k, v in w.items():
+            h.update(f"{k} {tuple(v.shape)} {v.dtype};".encode())
+            h.update(v.numpy().tobytes())
+        assert len(w) == 50 and h.hexdigest() == digest, seed
+    for name, c in (("PBL", PBL), ("CNN", CNN)):
+        got = [work.forward_flops(ref, c, f, s) for f, s in SHAPES]
+        assert got == PINNED_FLOPS[name], name

@@ -1,22 +1,21 @@
 """Seeded weights for a configuration, made on the device in a few large
-draws, keyed by the program's state-dict names (reference param_spec)."""
+draws, keyed by the program's state-dict names (the spec comes from the
+configuration's reference module, its `param_spec`)."""
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
-from bench_torch.reference import las as ref
 
-
-def make(cfg: dict, seed: int, device: torch.device) -> Dict[str, torch.Tensor]:
-    """Every tensor of the model's state dict, float32 on `device`:
+def make(spec: List[Tuple[str, tuple, tuple]], seed: int,
+         device: torch.device) -> Dict[str, torch.Tensor]:
+    """Every tensor of `spec` (name, shape, init), float32 on `device`:
     glorot-uniform matrices, uniform embedding and attention vector,
     normal conv kernels, constant biases and statistics, as the recipe
     initializes them.  One uniform and one normal draw cover all."""
-    spec = ref.param_spec(cfg)
     g = torch.Generator(device=device).manual_seed(seed)
     n_uni = sum(math.prod(s) for _, s, i in spec if i[0] in ("glorot", "uniform"))
     n_norm = sum(math.prod(s) for _, s, i in spec if i[0] == "normal")
@@ -38,12 +37,3 @@ def make(cfg: dict, seed: int, device: torch.device) -> Dict[str, torch.Tensor]:
         else:
             out[name] = torch.full(shape, float(init[1]), device=device)
     return out
-
-
-def lower_eos(w: Dict[str, torch.Tensor], shift: float) -> None:
-    """Lower the EOS logit of the speller (and of the CTC head, if any) by
-    `shift`, so that a search with random weights runs its step budget as
-    a trained model's about does."""
-    for head in ("speller.out.bias", "speller.ctc_head.bias"):
-        if head in w:
-            w[head][ref.EOS] -= shift

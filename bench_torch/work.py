@@ -1,5 +1,7 @@
 """The yardstick's arithmetic: the card's published peaks, and the
-operations and bytes the model's function needs, counted from shapes.
+operations and bytes the model's function needs, counted from shapes:
+the frontend's here, since every configuration shares the fused kernel,
+and the rest by the configuration's reference module (reference/).
 
 Counts are of the function, not of any kernel's algorithm: a matrix
 product of (m, k) by (k, n) is 2 m k n; a 512-point real DFT is
@@ -14,7 +16,7 @@ from functools import lru_cache
 
 import numpy as np
 
-from bench_torch.reference import las as ref
+from bench_torch.reference.las import _mel_filterbank
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
@@ -29,7 +31,7 @@ def peak(cfg: dict) -> float:
 
 @lru_cache(maxsize=8)
 def _mel_nonzeros(filters: int, fft_length: int, sample_rate: int) -> int:
-    fb = ref._mel_filterbank(filters, fft_length // 2 + 1, sample_rate)
+    fb = _mel_filterbank(filters, fft_length // 2 + 1, sample_rate)
     return int(np.count_nonzero(fb))
 
 
@@ -64,63 +66,13 @@ def frontend_least_s(cfg: dict, B: int, S: int, T: int) -> float:
                ops / PEAK_FLOPS["tf32"])
 
 
-def _birnn(T: int, d_in: int, u: int) -> float:
-    return 2 * T * (2 * d_in * u + 2 * u * u)
-
-
-def listener_flops(cfg: dict, frames: int) -> float:
-    """Forward operations of the listener over `frames` real frames."""
-    u, D = cfg["enc_units"], cfg["feat_dim"]
-    if cfg["enc_type"] == "cnn":
-        C = cfg["num_enc_channels"]
-        t1, d1 = ref._ceil_half(frames), ref._ceil_half(D)
-        t2, d2 = ref._ceil_half(t1), ref._ceil_half(d1)
-        ops = 2 * t1 * d1 * C * 27 + 2 * t2 * d2 * C * C * 9
-        d = d2 * C
-        for _ in range(cfg["num_enc_layers"]):
-            ops += _birnn(t2, d, u) + 2 * t2 * 2 * u * u
-            d = u
-        return ops
-    T = frames
-    ops = _birnn(T, 3 * D, u) + 2 * T * 2 * u * 2 * u
-    for _ in range(cfg["num_enc_layers"]):
-        ops += _birnn(T, 2 * u, u)
-        T = ref._ceil_half(T)
-        ops += 2 * T * 4 * u * 2 * u
-    return ops
-
-
-def enc_frames(cfg: dict, frames: int) -> int:
-    t = frames
-    for _ in range(2 if cfg["enc_type"] == "cnn" else cfg["num_enc_layers"]):
-        t = ref._ceil_half(t)
-    return t
-
-
-def speller_step_flops(cfg: dict, t_enc: int) -> float:
-    """One decoder step for one row attending over t_enc frames."""
-    h = ref.enc_dim(cfg)
-    A, U, L, E, V = (cfg["attention_size"], cfg["dec_units"],
-                     cfg["num_dec_layers"], cfg["embedding_size"],
-                     cfg["vocab_size"])
-    ops = 2 * L * U * A + 3 * t_enc * A + 3 * t_enc + 2 * t_enc * h
-    if cfg["mode"] == "loc":
-        C, K = cfg["loc_num_channels"], cfg["loc_kernel_size"]
-        ops += 2 * t_enc * C * K + 2 * t_enc * C * A
-    d = E + h
-    for _ in range(L):
-        ops += 2 * (d + U) * U
-        d = U
-    return ops + 2 * U * V
-
-
-def forward_flops(cfg: dict, frames: int, steps: int) -> float:
-    """Frontend, listener, the attention's encoder projection and
-    `steps` teacher-forced or greedy decoder steps of one utterance."""
-    t = enc_frames(cfg, frames)
-    return (frames * frontend_ops_per_frame(cfg) + listener_flops(cfg, frames)
-            + 2 * t * ref.enc_dim(cfg) * cfg["attention_size"]
-            + steps * speller_step_flops(cfg, t))
+def forward_flops(model, cfg: dict, frames: int, steps: int) -> float:
+    """Frontend, and what the configuration's reference module `model`
+    counts past it (its `model_flops`: listener, the attention's encoder
+    projection, `steps` teacher-forced or greedy decoder steps), of one
+    utterance."""
+    return (frames * frontend_ops_per_frame(cfg)
+            + model.model_flops(cfg, frames, steps))
 
 
 def step_budget(cfg: dict, frames: int) -> int:
