@@ -1,5 +1,8 @@
 """The port's own copy of automatic_speech_recognition_tpu/config.py
-(tests/test_torch_shared_copies.py holds it to the original).
+(tests/test_torch_shared_copies.py holds it to the original).  One field
+is the port's own: `rnn_cell` ('rnn' | 'lstm'), the cell of every
+recurrent layer of the LAS, which the JAX package does not have; it is a
+MODEL_FIELDS entry too.
 
 Configuration system.
 
@@ -82,6 +85,10 @@ class Config:
     enc_units: int = 64
     num_enc_channels: int = 32
     num_enc_layers: int = 2
+    # the port's own: every recurrent layer of the LAS (listener BiRNNs,
+    # speller cells) is a tanh RNN cell ('rnn', the reference's) or an
+    # LSTM cell ('lstm')
+    rnn_cell: str = "rnn"                 # 'rnn' | 'lstm'
 
     # ---- Attention (reference: las/arguments.py:126-141) ----
     attention_size: int = 128
@@ -362,6 +369,7 @@ class Config:
 MODEL_FIELDS = (
     "unit", "feat_dim", "feat_type", "cmvn",
     "enc_type", "enc_units", "num_enc_channels", "num_enc_layers",
+    "rnn_cell",
     "attention_size", "loc_kernel_size", "loc_num_channels", "mode",
     "dec_units", "num_dec_layers", "embedding_size", "apply_bn", "ctc",
     # not a parameter-shape field, but it defines what the model's shards

@@ -227,7 +227,7 @@ def _beam_search(model: LAS, feats, featlen, cfg: Config, max_steps: int,
     t = torch.zeros((B,), **i64)
     prev_ids = torch.full((B, K), SOS_ID, **i64)
     prev_align = torch.zeros((B, K, T), dtype=cdt, device=dev)
-    dec_states = torch.zeros((len(sp.cells), BK, sp.out.in_features),
+    dec_states = torch.zeros((len(sp.cells), BK, sp.state_size),
                              dtype=cdt, device=dev)
     cum = torch.zeros((B, K), device=dev)
     valid = (torch.arange(K, device=dev) == 0).expand(B, K)

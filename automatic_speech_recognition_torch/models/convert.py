@@ -16,6 +16,12 @@ optax Adam moment or MultiSteps accumulator) through the same layouts, one
 array per port parameter (import_checkpoint.py).  `split_dims` is JAX's
 tensor-parallel rule (parallel/sharding.param_spec) decided on each JAX
 leaf and carried to the port tensors that leaf fills.
+
+The JAX package has no LSTM LAS: a model or Config with rnn_cell 'lstm'
+is refused by every conversion of values (from_jax_params,
+to_jax_params, per_parameter), never loaded in a tanh cell's layout.
+`split_dims` reads shapes alone and takes it: its BiLSTM and speller
+kernels are fused (D + U, 4U) leaves, split along the gates.
 """
 
 from __future__ import annotations
@@ -94,6 +100,17 @@ def _birnn(targets, path: str, rnn: nn.RNN) -> None:
             (getattr(rnn, f"weight_ih_l0{sfx}"), lambda a: a[:D].T),
             (getattr(rnn, f"weight_hh_l0{sfx}"), lambda a: a[D:].T)]
         targets[f"{path}/{d}/b"] = [(getattr(rnn, f"bias_ih_l0{sfx}"), _same)]
+
+
+def _refuse_lstm(rnn_cell: str) -> None:
+    if rnn_cell != "rnn":
+        raise ValueError(
+            f"rnn_cell {rnn_cell!r}: the JAX package has no LSTM LAS, so "
+            "there is no JAX tree to convert from or to")
+
+
+def _cell_of(model: las.LAS) -> str:
+    return "lstm" if model.speller.lstm else "rnn"
 
 
 def _leaf(fills: _Target) -> np.ndarray:
@@ -234,6 +251,7 @@ def per_parameter(model: Union[las.LAS, char_rnn.CharRNN],
     layout: the array each port parameter takes, keyed by the parameter.
     A missing or extra path, or a wrong shape, raises, naming it."""
     if isinstance(model, las.LAS):
+        _refuse_lstm(_cell_of(model))
         targets = {f"{prefix}/{k[len('params/'):]}": v
                    for k, v in _targets(model).items()
                    if k.startswith("params/")}
@@ -246,6 +264,7 @@ def per_parameter(model: Union[las.LAS, char_rnn.CharRNN],
 def from_jax_params(params_np: Dict, bn_state_np: Dict, cfg: Config,
                     device: torch.device) -> las.LAS:
     """The port's LAS holding the given JAX params and BN state."""
+    _refuse_lstm(cfg.rnn_cell)
     model = las.LAS(cfg)
     _fill(_targets(model), {**_flatten(params_np, "params"),
                             **_flatten(bn_state_np, "state")}, "LAS")
@@ -272,6 +291,7 @@ def _to_tree(targets: Dict[str, _Target]) -> Dict:
 def to_jax_params(model: las.LAS) -> Tuple[Dict, Dict]:
     """(params, bn_state): the model's weights and BN statistics as the
     JAX package's NumPy pytrees, the inverse of from_jax_params."""
+    _refuse_lstm(_cell_of(model))
     tree = _to_tree(_targets(model))
     # a pblstm listener has no BN leaves: its state is {'listener': {}}
     return tree["params"], tree.get("state", {"listener": {}})

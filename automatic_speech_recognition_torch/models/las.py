@@ -23,6 +23,11 @@ automatic_speech_recognition_tpu/models/las.py).
   = vocab_size), with the JAX package's LR and tf-rate schedules;
   cfg.spec_augment masks the training features first
   (ops/augmentation.spec_augment), before the compute cast.
+- cfg.rnn_cell (the port's own) 'lstm' makes every recurrent layer an
+  LSTM: the BiRNNs nn.LSTM, the speller's cells fused [x, h] -> 4U
+  layers run by ops/layers.lstm_cell_apply.  The decoder state is one
+  (L, B, S) tensor, S = U for tanh cells and 2U = [h | c] for LSTM
+  cells, and the attention query concatenates each layer's h.
 - cfg.dtype 'bfloat16': compute_cast runs the forward on bfloat16 copies
   of the float32 master parameters (and of the BiRNNs' zero bias_hh
   buffers); BN moving statistics and int8 w_scale buffers stay float32,
@@ -40,7 +45,9 @@ The graphs replay the kernels the eager loop launches, on the same
 inputs, copied in by value; anything else runs the eager loop.
 
 Host spans (utils/spans.py): `las.listener` around the listener's
-forward, `las.speller` around a decoder loop (eager, or a replay with
+forward, with its counter `las.listener.rnn_frames` (rows x padded
+frames x 2 directions, summed over the listener's BiRNNs, from the
+shapes), `las.speller` around a decoder loop (eager, or a replay with
 its input copies and output clones) with its counter
 `las.speller.steps` (every decoder step), and a fine `las.speller.step`
 range an eager decoder step under a profiler.  Counters of the graphs:
@@ -149,7 +156,7 @@ def compute_cast(cfg: Config, model: nn.Module) -> Iterator[None]:
         slots = []
         for mod in model.modules():
             tables = [mod._parameters]
-            if isinstance(mod, nn.RNN):
+            if isinstance(mod, nn.RNNBase):
                 tables.append(mod._buffers)
             slots += [(table, name) for table in tables
                       for name, t in table.items()
@@ -164,9 +171,10 @@ def compute_cast(cfg: Config, model: nn.Module) -> Iterator[None]:
 
 
 class ListenerLayer(nn.Module):
-    def __init__(self, in_dim: int, units: int, apply_bn: bool):
+    def __init__(self, in_dim: int, units: int, apply_bn: bool,
+                 cell: str = "rnn"):
         super().__init__()
-        self.birnn = L.make_birnn(in_dim, units)
+        self.birnn = L.make_birnn(in_dim, units, cell)
         self.proj = nn.Linear(2 * units, units)
         self.bn_extra = L.BatchNorm(units) if apply_bn else None
         self.bn_main = L.BatchNorm(units)
@@ -196,7 +204,8 @@ class Listener(nn.Module):
         d = ceil_half(ceil_half(cfg.feat_dim)) * C
         self.layers = nn.ModuleList()
         for _ in range(cfg.num_enc_layers):
-            self.layers.append(ListenerLayer(d, cfg.enc_units, cfg.apply_bn))
+            self.layers.append(ListenerLayer(d, cfg.enc_units, cfg.apply_bn,
+                                             cfg.rnn_cell))
             d = cfg.enc_units
 
     def forward(self, audio: torch.Tensor, audiolen: torch.Tensor
@@ -224,6 +233,7 @@ class Listener(nn.Module):
             audiolen = ceil_half(audiolen)
         B, T, Dr, C = x.shape
         x = x.reshape(B, T, Dr * C)
+        spans.count("las.listener.rnn_frames", 2 * B * T * len(self.layers))
         for i, layer in enumerate(self.layers):
             x = L.dropout(x, dropout_rate, is_training, generator)
             x, layer_state = layer(x, is_training, group)
@@ -233,9 +243,9 @@ class Listener(nn.Module):
 
 
 class PyramidStage(nn.Module):
-    def __init__(self, units: int):
+    def __init__(self, units: int, cell: str = "rnn"):
         super().__init__()
-        self.birnn = L.make_birnn(2 * units, units)
+        self.birnn = L.make_birnn(2 * units, units, cell)
         self.proj = nn.Linear(4 * units, 2 * units)
 
 
@@ -246,9 +256,9 @@ class PBLSTMListener(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         u = cfg.enc_units
-        self.birnn0 = L.make_birnn(3 * cfg.feat_dim, u)
+        self.birnn0 = L.make_birnn(3 * cfg.feat_dim, u, cfg.rnn_cell)
         self.proj0 = nn.Linear(2 * u, 2 * u)
-        self.pyr = nn.ModuleList(PyramidStage(u)
+        self.pyr = nn.ModuleList(PyramidStage(u, cfg.rnn_cell)
                                  for _ in range(cfg.num_enc_layers))
 
     def forward(self, audio: torch.Tensor, audiolen: torch.Tensor
@@ -265,6 +275,10 @@ class PBLSTMListener(nn.Module):
         """(enc_out, enc_len, {}): the pyramid has no BN state, so it
         needs no group."""
         B, T, D, C = audio.shape
+        frames, t = T, T                # birnn0, then each stage's BiRNN
+        for _ in self.pyr:
+            frames, t = frames + t, ceil_half(t)
+        spans.count("las.listener.rnn_frames", 2 * B * frames)
         x = L.dropout(audio.reshape(B, T, D * C), dropout_rate, is_training,
                       generator)
         x = torch.tanh(self.proj0(L.birnn_apply(self.birnn0, x)))
@@ -280,9 +294,18 @@ class PBLSTMListener(nn.Module):
 
 
 class Speller(nn.Module):
+    """Embedding, attention, the stacked cells (fused [x, h] Linear
+    layers: to U for tanh cells, to the 4U gates for LSTM cells), output
+    layer and the optional CTC head.  `lstm` says which cells;
+    `state_size` is a layer's width in the decoder state (U, or 2U for
+    an LSTM's [h | c])."""
+
     def __init__(self, cfg: Config):
         super().__init__()
         h_dim = enc_out_dim(cfg)
+        self.lstm = cfg.rnn_cell == "lstm"
+        self.state_size = cfg.dec_units * (2 if self.lstm else 1)
+        gates = cfg.dec_units * (4 if self.lstm else 1)
         self.embedding = nn.Embedding(cfg.vocab_size, cfg.embedding_size)
         self.attention = att.Attention(
             cfg.mode, h_dim, cfg.dec_units * cfg.num_dec_layers,
@@ -291,8 +314,7 @@ class Speller(nn.Module):
         in_dim = cfg.embedding_size + h_dim
         self.cells = nn.ModuleList()
         for _ in range(cfg.num_dec_layers):
-            self.cells.append(nn.Linear(in_dim + cfg.dec_units,
-                                        cfg.dec_units))
+            self.cells.append(nn.Linear(in_dim + cfg.dec_units, gates))
             in_dim = cfg.dec_units
         # trained with joint CTC; greedy attention decoding does not read it
         self.ctc_head = (nn.Linear(h_dim, cfg.vocab_size + 1) if cfg.ctc
@@ -301,16 +323,22 @@ class Speller(nn.Module):
 
 def decode_step(sp: Speller, enc_out, enc_len, states, prev_emb, prev_align,
                 h_proj=None):
-    """One decoder step.  states: (L, B, U).  Returns (logits, new states,
-    alphas)."""
-    B = enc_out.shape[0]
-    s_i = states.transpose(0, 1).reshape(B, -1)
+    """One decoder step.  states: (L, B, S), a layer's h (tanh cells) or
+    [h | c] (LSTM cells); the attention's query is every layer's h.
+    Returns (logits, new states, alphas)."""
+    B, U = enc_out.shape[0], sp.out.in_features
+    s_i = states[..., :U].transpose(0, 1).reshape(B, -1)
     context, alphas = sp.attention(enc_out, s_i, prev_align, enc_len, h_proj)
     x = torch.cat([prev_emb, context], -1)
     new_states = []
     for l, cell in enumerate(sp.cells):
-        x = L.rnn_cell_apply(cell, x, states[l])
-        new_states.append(x)
+        if sp.lstm:
+            x, (c, _) = L.lstm_cell_apply(
+                cell, x, (states[l, :, U:], states[l, :, :U]))
+            new_states.append(torch.cat([x, c], -1))
+        else:
+            x = L.rnn_cell_apply(cell, x, states[l])
+            new_states.append(x)
     return sp.out(x), torch.stack(new_states), alphas
 
 
@@ -322,7 +350,7 @@ def speller_greedy(sp: Speller, enc_out, enc_len, dec_steps: int
     emb = L.embed(
         sp.embedding,
         torch.full((B,), SOS_ID, dtype=torch.long, device=enc_out.device))
-    states = enc_out.new_zeros(len(sp.cells), B, sp.out.in_features)
+    states = enc_out.new_zeros(len(sp.cells), B, sp.state_size)
     align = enc_out.new_zeros(B, T_enc)
     h_proj = att.precompute_hidden(sp.attention, enc_out)
     logits, alphas = [], []
@@ -408,7 +436,7 @@ def _teacher_loop(sp: Speller, cfg: Config, enc_out, enc_len, teacher,
     emb = L.embed(
         sp.embedding, torch.full((B,), SOS_ID, dtype=torch.long, device=dev),
         vn)
-    states = enc_out.new_zeros(len(sp.cells), B, sp.out.in_features)
+    states = enc_out.new_zeros(len(sp.cells), B, sp.state_size)
     align = enc_out.new_zeros(B, T_enc)
     h_proj = att.precompute_hidden(sp.attention, enc_out)
     logits, alphas = [], []
@@ -810,7 +838,8 @@ def num_params(model: nn.Module) -> int:
 def init(cfg: Config, generator: torch.Generator,
          device: torch.device) -> LAS:
     """A LAS with the JAX package's init distributions: glorot-uniform
-    dense layers and RNN cells (over the fused [x, h] kernel), uniform +-1
+    dense layers and RNN cells (over the fused [x, h] kernel: fan_in
+    in + U, fan_out the gates' width, U or an LSTM's 4U), uniform +-1
     embedding and u, conv N(0, 1) * 0.01 with bias 0.01, location conv
     uniform +-sqrt(6 / (K + K C)), BN scale 1 / bias 0 / mean 0 / var 1,
     biases 0.  `generator` is a CPU generator."""
@@ -821,8 +850,9 @@ def init(cfg: Config, generator: torch.Generator,
             L.glorot_uniform_(m.weight, m.in_features, m.out_features, g)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.RNN):
-            fan_in, fan_out = m.input_size + m.hidden_size, m.hidden_size
+        elif isinstance(m, nn.RNNBase):
+            fan_in = m.input_size + m.hidden_size
+            fan_out = m.weight_hh_l0.shape[0]
             for name, w in m.named_parameters():
                 if name.startswith("weight"):
                     L.glorot_uniform_(w, fan_in, fan_out, g)

@@ -10,6 +10,10 @@ purpose:
   h' = tanh([x, h] @ W + b) with one bias; the language model's lstm and
   gru cells are TF's BasicLSTMCell and GRUCell over fused [x, h] weights
   (not nn.LSTM / nn.GRU, whose gate order and biases differ);
+- the port's LSTM LAS (Config.rnn_cell 'lstm'): the BiRNNs are nn.LSTM
+  (gates i, f, g, o; one bias, bias_hh a zero buffer) and the speller's
+  cells are lstm_cell_apply's fused [x, h] cells, both c' = sig(f) c +
+  sig(i) tanh(g), h' = sig(o) tanh(c'), forget bias 0;
 - the bidirectional RNN's backward direction runs over the full padded
   sequence reversed (no sequence lengths), as nn.RNN does unpacked;
 - conv2d: 3x3, stride 2, TF 'SAME' padding, which pads (0, 1) on an even
@@ -130,32 +134,47 @@ def gru_cell_apply(cell: GRUCell, x: torch.Tensor,
     return u * h + (1.0 - u) * c
 
 
-def make_birnn(in_dim: int, units: int) -> nn.RNN:
-    """Bidirectional tanh RNN.  The JAX cell's single bias is bias_ih;
-    nn.RNN's second bias, bias_hh, is turned into a zero buffer: as a
-    parameter it would take the same gradient as bias_ih and the
-    optimizer would move the effective bias twice per step."""
-    rnn = nn.RNN(in_dim, units, nonlinearity="tanh", batch_first=True,
-                 bidirectional=True)
+RNN_CELLS = ("rnn", "lstm")
+
+
+def make_birnn(in_dim: int, units: int, cell: str = "rnn") -> nn.RNNBase:
+    """Bidirectional tanh RNN ('rnn') or LSTM ('lstm').  The JAX cell's
+    single bias is bias_ih; the second bias, bias_hh, is turned into a
+    zero buffer: as a parameter it would take the same gradient as
+    bias_ih and the optimizer would move the effective bias twice per
+    step."""
+    if cell == "rnn":
+        rnn = nn.RNN(in_dim, units, nonlinearity="tanh", batch_first=True,
+                     bidirectional=True)
+    elif cell == "lstm":
+        rnn = nn.LSTM(in_dim, units, batch_first=True, bidirectional=True)
+    else:
+        raise ValueError(f"--rnn_cell must be one of {RNN_CELLS}, got "
+                         f"{cell!r}")
+    gates = rnn.weight_hh_l0.shape[0]
     for name in ("bias_hh_l0", "bias_hh_l0_reverse"):
         delattr(rnn, name)
-        rnn.register_buffer(name, torch.zeros(units))
-    rnn._init_flat_weights()         # re-read the weight list nn.RNN runs
+        rnn.register_buffer(name, torch.zeros(gates))
+    rnn._init_flat_weights()         # re-read the weight list the RNN runs
     return rnn
 
 
-def birnn_apply(rnn: nn.RNN, xs: torch.Tensor) -> torch.Tensor:
-    """(B, T, D) -> (B, T, 2U) = [forward | backward] outputs.  Weights
-    split over a model axis are gathered whole first; cuDNN then copies
-    them into its own buffer at every call, as they are not one flat
-    chunk."""
+def birnn_apply(rnn: nn.RNNBase, xs: torch.Tensor) -> torch.Tensor:
+    """(B, T, D) -> (B, T, 2U) = [forward | backward] outputs, from zero
+    states.  Weights split over a model axis are gathered whole first;
+    cuDNN then copies them into its own buffer at every call, as they are
+    not one flat chunk."""
     if tp.axis_of(rnn) is None:
         out, _ = rnn(xs)
         return out
     weights = [tp.full(rnn, name) for name in rnn._flat_weights_names]
     h0 = xs.new_zeros(2, xs.shape[0], rnn.hidden_size)
-    out, _ = torch.rnn_tanh(xs, h0, weights, True, 1, 0.0, rnn.training,
-                            True, True)
+    if isinstance(rnn, nn.LSTM):
+        out, _, _ = torch.lstm(xs, (h0, torch.zeros_like(h0)), weights,
+                               True, 1, 0.0, rnn.training, True, True)
+    else:
+        out, _ = torch.rnn_tanh(xs, h0, weights, True, 1, 0.0,
+                                rnn.training, True, True)
     return out
 
 

@@ -49,7 +49,8 @@ waveform perturbations (--online_speed_perturb, --online_volume_perturb,
 --online_noise_perturb, which need --audio_shards); --spec_augment masks
 the features in the loss.  A checkpoint is saved at every epoch end and
 on SIGTERM/SIGINT; --restore_epoch (default: the latest) resumes.
-Both listeners (--enc_type cnn, pblstm) and both compute dtypes train;
+Both listeners (--enc_type cnn, pblstm), both cells (--rnn_cell rnn,
+lstm) and both compute dtypes train;
 under --dtype bfloat16 the weights, the optimizer and the checkpoints
 stay float32 (models/las.compute_cast).  --profile_dir records a
 torch.profiler trace of steps 10-20 (trace.json; trace.rank<r>.json for
@@ -58,7 +59,8 @@ coarse spans are named ranges; the log line names the trace's clock mark
 (utils/spans.py).  Every logging step's line gives the mean ms a step of
 each coarse train.* and las.* span since the last line, and the last
 line their totals over the run, with the share of the speller's decoder
-steps that CUDA graph replays ran (models/las.graphed_loop).
+steps that CUDA graph replays ran (models/las.graphed_loop) and the
+listener's BiRNN frame-steps.
 
 Under torchrun (parallel/distributed.py) each process drives
 cuda:LOCAL_RANK (gloo with --device cpu), reads its rows of every global
@@ -221,6 +223,15 @@ def graph_note(before: Dict) -> str:
         for name in ("steps", "graph_steps", "graph_captures"))
     return (f"speller graphs replayed {replayed} of {steps} decoder steps "
             f"({100 * replayed / max(steps, 1):.1f} %), {captures} captures")
+
+
+def listener_note(before: Dict) -> str:
+    """The listener's BiRNN frame-steps since the spans.totals() reading
+    `before`: rows x padded frames x 2 directions, summed over its
+    BiRNNs (the `las.listener.rnn_frames` counter)."""
+    got = spans.report(before, ("las.listener.rnn_frames",))
+    frames = got.get("las.listener.rnn_frames", {}).get("count", 0)
+    return f"listener BiRNN frame-steps {frames}"
 
 
 def clock_note() -> str:
@@ -456,8 +467,9 @@ def main(argv: Optional[Sequence[str]] = None, exec_launcher: bool = False
         signal.signal(sig, handler)
     if watchdog is not None:
         watchdog.stop()
-    log.info("done at step %d; timers: %s; %s", global_step,
-             phase_report(span_start), graph_note(span_start))
+    log.info("done at step %d; timers: %s; %s; %s", global_step,
+             phase_report(span_start), graph_note(span_start),
+             listener_note(span_start))
     writer.close()
     history = {k: [float(x) for x in v] for k, v in history.items()}
     # the metrics are the global batch's on every rank: each host's first

@@ -434,13 +434,22 @@ def _speller_step(model, cfg, loop, inputs, alphas_in_loss):
 # the train cell's speller (bench_torch/configs/las_pblstm_chan2016.json):
 # pblstm listener of 2 x 256, 2 x 512 decoder, content attention, 44 ids;
 # two of its batch shapes (rows, encoder frames, decoder steps): the
-# shortest bucket's and the longest's
+# shortest bucket's and the longest's.  The LSTM speller at toy widths and
+# at LAS-6-1280's (bench_torch/configs/las_6_1280_park2019.json: cnn
+# listener of 1280, 2 x 1280 LSTM decoder, attention and embedding 512,
+# 16384 ids), with the word-piece cell's shortest and longest shapes
 WIDTHS = {
     "toy": ({}, {"A": (6, 23, 17), "B": (4, 31, 12)}),
     "cell": (dict(vocab_size=44, feat_dim=40, enc_units=256,
                   num_enc_layers=3, dec_units=512, embedding_size=128,
                   attention_size=128),
              {"A": (96, 80, 96), "B": (48, 214, 219)}),
+    "lstm": (dict(rnn_cell="lstm"), {"A": (6, 23, 17), "B": (4, 31, 12)}),
+    "lstm_cell": (dict(rnn_cell="lstm", enc_type="cnn", vocab_size=16384,
+                       feat_dim=80, enc_units=1280, num_enc_layers=6,
+                       dec_units=1280, embedding_size=512,
+                       attention_size=512),
+                  {"A": (96, 160, 32), "B": (48, 428, 96)}),
 }
 
 
@@ -456,7 +465,7 @@ def cudnn_deterministic():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", ["toy", "cell"])
+@pytest.mark.parametrize("width", ["toy", "cell", "lstm", "lstm_cell"])
 @pytest.mark.parametrize("mode", ["add", "loc"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_graphed_speller_matches_the_eager_loop(cuda, cudnn_deterministic,
@@ -595,9 +604,10 @@ def test_graph_capture_beside_a_thread_copying_to_the_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["rnn", "lstm"])
 @pytest.mark.parametrize("ctc", [False, True])
 def test_graphed_train_steps_match_eager_ones(cuda, cudnn_deterministic,
-                                              monkeypatch, ctc):
+                                              monkeypatch, ctc, cell):
     """N train steps of one batch shape (the listener, the loss with and
     without joint CTC, whose head shares enc_out's gradient, Adam):
     the state that replays the speller's graphs and one that runs the
@@ -605,7 +615,7 @@ def test_graphed_train_steps_match_eager_ones(cuda, cudnn_deterministic,
     (N - 2) x steps replayed decoder steps (two eager calls first)."""
     from automatic_speech_recognition_torch.training import trainer
     from automatic_speech_recognition_torch.utils import spans
-    cfg = _graph_cfg(lr=1e-2, ctc=ctc)
+    cfg = _graph_cfg(lr=1e-2, ctc=ctc, rnn_cell=cell)
     rng = np.random.default_rng(3)
     B, T, L, N = 6, 64, 19, 4
     feats = rng.standard_normal((N, B, T, 13, 3)).astype(np.float32)

@@ -38,9 +38,11 @@ def small_cfg(**kw):
 
 def jax_cfg(cfg):
     """The JAX package's Config with the fields of the port's `cfg`: each
-    package runs on its own Config."""
+    package runs on its own Config (the port's own fields, such as
+    rnn_cell, left out)."""
     return JConfig(**{f.name: getattr(cfg, f.name)
-                      for f in dataclasses.fields(cfg)})
+                      for f in dataclasses.fields(cfg)
+                      if f.name in JConfig.__dataclass_fields__})
 
 
 def jax_model(cfg, rng, seed=0):

@@ -55,8 +55,12 @@ COPIES = {
     "data/flac_encode.py": (),
     "training/monitor.py": (), "ops/frontend_host.py": (),
 }
-# definitions that differ because of what the copy leaves out
-CHANGED = {"utils/formant_synth.py": {"synth_tracks"}}
+# definitions that differ because of what the copy leaves out, or (in
+# config.py) because of the port's own fields, PORT_FIELDS
+CHANGED = {"utils/formant_synth.py": {"synth_tracks"},
+           "config.py": {"Config", "MODEL_FIELDS"}}
+# the port's own Config fields (not in the JAX package's) and defaults
+PORT_FIELDS = {"rnn_cell": "rnn"}
 
 
 def _definitions(path: Path):
@@ -101,7 +105,9 @@ def test_formant_synth_keeps_only_the_numpy_voiced_path():
 
 
 def _fields(cfg):
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    """The fields both packages have (PORT_FIELDS left out)."""
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if f.name not in PORT_FIELDS}
 
 
 def test_config_defaults_field_by_field():
@@ -109,7 +115,25 @@ def test_config_defaults_field_by_field():
     assert list(got) == list(want)
     for k in want:
         assert got[k] == want[k], k
-    assert tconfig.MODEL_FIELDS == jconfig.MODEL_FIELDS
+    port = tconfig.Config()
+    assert {k: getattr(port, k) for k in PORT_FIELDS} == PORT_FIELDS
+    assert tuple(f for f in tconfig.MODEL_FIELDS if f not in PORT_FIELDS) \
+        == jconfig.MODEL_FIELDS
+    assert set(PORT_FIELDS) <= set(tconfig.MODEL_FIELDS)
+
+
+def test_config_differs_from_the_original_only_by_the_port_fields():
+    """Config and MODEL_FIELDS are the original's but for the lines that
+    name a PORT_FIELDS field (and the comment above the field)."""
+    want = _definitions(JAX_PKG / "config.py")[0]
+    got = _definitions(PORT / "config.py")[0]
+    for name in CHANGED["config.py"]:
+        lines = got[name].splitlines()
+        keep = [line for i, line in enumerate(lines)
+                if not any(f in line for f in PORT_FIELDS)
+                and not (line.strip().startswith("#") and any(
+                    f in "".join(lines[i:i + 4]) for f in PORT_FIELDS))]
+        assert keep == want[name].splitlines(), name
 
 
 TRAIN_FLAGS = ["--unit", "char", "--feat_dim", "13", "--enc_units", "64",
@@ -142,6 +166,7 @@ def test_saved_config_round_trips_between_the_packages(tmp_path):
     got, got_over = tconfig.apply_saved_model_config(tconfig.Config(),
                                                      str(tmp_path))
     assert _fields(got) == _fields(want) and got_over == want_over
+    assert got.rnn_cell == "rnn"
     assert tconfig.check_model_config(tconfig.Config(), str(tmp_path)) == \
         jconfig.check_model_config(jconfig.Config(), str(tmp_path))
 

@@ -160,8 +160,17 @@ def test_one_train_step_records_each_phase_once(rng):
     assert "train.allreduce" not in got          # one process: no group
     (steps,) = got["las.speller.steps"]
     assert steps.n == batch[2].shape[1]
+    # rows x padded encoder frames x 2 directions a BiRNN layer, from the
+    # shapes: the cnn listener's layers run at time / 4
+    (frames,) = got["las.listener.rnn_frames"]
+    half = lambda n: (n + 1) // 2
+    T = (batch[0].shape[1] - 400) // 160
+    assert frames.n == 2 * 3 * half(half(T)) * cfg.num_enc_layers
+    (lis,) = got["las.listener"]
+    assert lis.start_ns <= frames.start_ns <= lis.end_ns
     (step,) = got["train.step"]
-    for name in PHASES[1:] + ("las.speller.steps",):
+    for name in PHASES[1:] + ("las.speller.steps",
+                              "las.listener.rnn_frames"):
         (r,) = got[name]
         assert step.start_ns <= r.start_ns <= r.end_ns <= step.end_ns
     # the five phases do not overlap
@@ -195,6 +204,8 @@ def test_train_cli_traces_and_logs_the_spans(tmp_path, rng, capsys):
     # the CPU runs the eager loop: no decoder step of a graph replay
     assert "speller graphs replayed 0 of " in last
     assert "decoder steps (0.0 %), 0 captures" in last
+    frames = int(last.rsplit("listener BiRNN frame-steps ", 1)[1].split()[0])
+    assert frames > 0
 
 
 def test_a_greedy_recognizer_call_records_its_layers():
