@@ -13,7 +13,8 @@ are up, then a synchronize; with --trace 1 a few more steps after it are
 profiled.  After it: the program is freed and the plain reference
 follows the first steps from the same weights on the same rows: the
 loss of each, the first gradient per leaf as Adam holds it after one
-step, and each leaf's change after the last."""
+step, and each leaf's change after the last; the mix's limits name the
+numbers compared (compare)."""
 
 from __future__ import annotations
 
@@ -212,13 +213,20 @@ def check(run, plain, w, first, keys, losses, first_grad, change) -> None:
         ctrl = compare(got["loss"], got["first_grad"], got["change"],
                        plain.train_steps(w, values, batches, tf32=True))
     run.check("unknown_rows", float(unknown), 0.0 if run.control else None)
-    for name in ("loss", "first_grad", "change"):
+    # the mix's limits say which of compare's numbers the cell holds
+    names = set(run.mix["check"]["limits"]) - {"unknown_rows"}
+    if not names or names - set(gaps):
+        raise ValueError(f"the mix's check names {sorted(names)}; "
+                         f"compare gives {sorted(gaps)}")
+    for name in (n for n in gaps if n in names):
         run.check(name, gaps[name], ctrl[name] if ctrl else None)
 
 
 def compare(losses, first_grad, change, got) -> dict:
-    loss = max(abs(a - b) / abs(b) for a, b in zip(losses, got["loss"]))
-    return {"loss": loss,
+    """`loss`: the worst relative gap of the steps' losses; `first_loss`:
+    the first step's alone; `first_grad`, `change`: leaf_gap's."""
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, got["loss"])]
+    return {"loss": max(gaps), "first_loss": gaps[0],
             "first_grad": leaf_gap(first_grad, got["first_grad"],
                                    got["raw_grad"]),
             "change": leaf_gap(change, got["change"], got["raw_grad"])}

@@ -1,13 +1,12 @@
 """Training throughput as train_loader measures it, and beside it what the
 listener's recurrences did: the window's real frame-steps, the frame-steps
-the program ran, and in a traced run the device time of the kernels that
-cuDNN's RNN forward and backward ops launched.
+the program ran, and in a traced run the device time of the recurrences
+the program ran, whatever implements them.
 
 train_loader.run runs as it is, with two observers put in for the run:
 the loader's prefetcher notes each batch's lengths in feed order and the
-time the step took it, and the traced stretch also reads, for each op of
-RNN_OPS, the device time of the kernels it and the ops under it launched
-(op_device_s).  After the run:
+time the step took it, and the traced stretch also reads the device time
+of the recurrences' forward and backward (rnn_device_s).  After the run:
 
 - run.counters['listener.real_frames']: the window's batches' real
   frame-steps, from the lengths fed through the reference module's frame
@@ -15,10 +14,32 @@ RNN_OPS, the device time of the kernels it and the ops under it launched
 - run.counters['listener.rnn_frames']: the program's
   `las.listener.rnn_frames` counter summed over the window's `train.step`
   spans (absent where the program has no such counter);
-- run.traced['op_device_s']: {op: device seconds} in the traced steps."""
+- run.traced['rnn_device_s']: {'forward': s, 'backward': s}, device
+  seconds in the traced steps.
+
+Which host ops are the recurrences' (recurrence_owners).  The program
+opens a profiler range named RANGE around each recurrence call, from its
+(B, T, D) input to its (B, T, 2U) output, both directions and the input
+projections inside and nothing else.  The forward is every op under such
+a range.  The backward is every autograd node that an op under a range
+made, found by the link the profiler keeps: a node's
+`autograd::engine::evaluate_function: <node>` op carries the thread and
+sequence number of the forward op that made it (fwd_thread_id,
+sequence_nr), and every op under it.  A cuDNN RNN, a custom
+autograd.Function or a loop of cell ops reads alike.  A profile with no
+such range (a program older than the range) is read by cuDNN's two RNN
+ops instead, each with the ops under it.
+
+The reading works on the profiler's raw events.  A host op is a CPU
+event linked to no other (the runtime's calls, cudaLaunchKernel and the
+like, are linked to the op that made them, and carry the runtime's own
+correlation ids, which may equal an op's); "under" is the interval on
+the op's thread; a kernel is tied to the op that launched it by its
+linked correlation id, which is that op's correlation id."""
 
 from __future__ import annotations
 
+import bisect
 import time
 from collections import deque
 
@@ -28,51 +49,103 @@ from torch.autograd import DeviceType
 from bench_torch import harness
 from bench_torch.drivers import train_loader
 from bench_torch.reference.las import num_frames
-from bench_torch.trace import Stretch, _is_device, _union
+from bench_torch.trace import Stretch, _union
 
-RNN_OPS = ("aten::_cudnn_rnn", "aten::_cudnn_rnn_backward")
+RANGE = "las.listener.rnn"
+BACKWARD = "autograd::engine::evaluate_function: "
+CUDNN_OPS = {"aten::_cudnn_rnn": "forward",
+             "aten::_cudnn_rnn_backward": "backward"}
 COUNTER = "las.listener.rnn_frames"
 
 
-def op_device_s(prof, ops) -> dict:
-    """Device seconds, for each op of `ops` (the outermost where one holds
-    another), of the kernels that it and the ops under it launched in the
-    profile `prof`: the union of their intervals, as cuDNN runs a
-    bidirectional layer's two directions side by side.  A kernel is tied
-    to the op that launched it by the profiler's correlation ids (the
-    kernel's linked id is its op's id)."""
-    owner = {}
+def _host_ops(events) -> list:
+    """The profile's host ops, ranges and autograd nodes among `events`,
+    by start."""
+    return sorted((e for e in events if e.device_type() == DeviceType.CPU
+                   and e.linked_correlation_id() == 0
+                   and e.correlation_id() > 0 and not e.is_async()),
+                  key=lambda e: e.start_ns())
 
-    def mark(e, op):
-        owner[e.id] = op
-        for child in e.cpu_children:
-            mark(child, op)
 
-    for e in prof.events():
-        if e.name not in ops or _is_device(e):
-            continue
-        parent = e.cpu_parent
-        while parent is not None and parent.name not in ops:
-            parent = parent.cpu_parent
-        if parent is None:
-            mark(e, e.name)
-    spans = {op: [] for op in ops}
-    for k in prof.profiler.kineto_results.events():
-        op = owner.get(k.linked_correlation_id())
-        if (op is not None and k.device_type() != DeviceType.CPU
+def _under(host: list, roots) -> dict:
+    """{correlation id: root} of each op of `host` (by start) that lies in
+    the interval of a root on the root's thread, the roots included; an
+    op in two roots goes to the outer."""
+    starts = [e.start_ns() for e in host]
+    out: dict = {}
+    for r in sorted(roots, key=lambda e: e.end_ns() - e.start_ns(),
+                    reverse=True):
+        thread, end = r.start_thread_id(), r.end_ns()
+        for e in host[bisect.bisect_left(starts, r.start_ns()):
+                      bisect.bisect_right(starts, end)]:
+            if e.start_thread_id() == thread and e.end_ns() <= end:
+                out.setdefault(e.correlation_id(), r)
+    return out
+
+
+def range_owners(events) -> dict:
+    """{correlation id: 'forward' or 'backward'}: the host ops among the
+    profiler's raw `events` under RANGE ranges, and under the autograd
+    nodes that ops under those ranges made."""
+    host = _host_ops(events)
+    forward = _under(host, [e for e in host if e.name() == RANGE])
+    nodes = [e for e in host if e.name().startswith(BACKWARD)]
+    in_backward = _under(host, nodes)
+    # An op records the number the next node on its thread will take, so
+    # an op that makes no node shares its number with the next op that
+    # does: a number belongs to the last forward op to record it.
+    made_by = {(e.start_thread_id(), e.sequence_nr()): e.correlation_id()
+               for e in host if e.sequence_nr() >= 0
+               and e.correlation_id() not in in_backward}
+    linked = [n for n in nodes if n.sequence_nr() >= 0 and made_by.get(
+        (n.fwd_thread_id(), n.sequence_nr())) in forward]
+    backward = _under(host, linked)
+    return {**{i: "forward" for i in forward},
+            **{i: "backward" for i in backward}}
+
+
+def cudnn_owners(events) -> dict:
+    """{correlation id: 'forward' or 'backward'}: the host ops among the
+    profiler's raw `events` under cuDNN's RNN forward and backward ops."""
+    host = _host_ops(events)
+    under = _under(host, [e for e in host if e.name() in CUDNN_OPS])
+    return {i: CUDNN_OPS[r.name()] for i, r in under.items()}
+
+
+def recurrence_owners(events) -> dict:
+    """The recurrences' host ops among the profiler's raw `events`: by the
+    program's ranges, or by cuDNN's ops in a profile that holds no range."""
+    if any(e.name() == RANGE for e in events):
+        return range_owners(events)
+    return cudnn_owners(events)
+
+
+def rnn_device_s(events, owner=None) -> dict:
+    """{'forward': s, 'backward': s}: device seconds of the kernels that
+    the recurrences' host ops (`owner`, by default recurrence_owners)
+    launched among the profiler's raw `events`, each the union of their
+    intervals (a bidirectional layer runs its two directions side by
+    side).  Range annotations on the device are left out."""
+    if owner is None:
+        owner = recurrence_owners(events)
+    spans = {"forward": [], "backward": []}
+    for k in events:
+        key = owner.get(k.linked_correlation_id())
+        if (key is not None and k.device_type() != DeviceType.CPU
                 and not k.is_user_annotation()):
-            spans[op].append((k.start_ns(), k.end_ns()))
-    return {op: sum(b - a for a, b in _union(s)) / 1e9
-            for op, s in spans.items()}
+            spans[key].append((k.start_ns(), k.end_ns()))
+    return {key: sum(b - a for a, b in _union(s)) / 1e9
+            for key, s in spans.items()}
 
 
 class RnnStretch(Stretch):
-    """trace.Stretch, its result holding 'op_device_s' for RNN_OPS."""
+    """trace.Stretch, its result holding 'rnn_device_s'."""
 
     def __exit__(self, *exc) -> None:
         super().__exit__(*exc)
         if self.result is not None:
-            self.result["op_device_s"] = op_device_s(self.prof, RNN_OPS)
+            self.result["rnn_device_s"] = rnn_device_s(
+                list(self.prof.profiler.kineto_results.events()))
 
 
 def noting_prefetcher(base, fed: list):

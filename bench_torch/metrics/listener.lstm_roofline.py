@@ -2,8 +2,9 @@
 training steps, %: the least time of their forward and backward (the
 larger of the operations at the configuration's dense peak and the bytes
 at HBM's rate, from the reference module's `rnn_work` on the padded
-shapes that ran) over the device time of the kernels that cuDNN's RNN
-forward and backward ops launched (drivers/train_loader_rnn.py)."""
+shapes that ran) over the device time of the kernels that the
+recurrences the program ran launched, forward and backward, whatever
+implements them (drivers/train_loader_rnn.rnn_device_s)."""
 
 from bench_torch import harness, work
 
@@ -14,7 +15,7 @@ def read(run):
     plain = harness.reference(run.config)
     if t is None or not calls or not hasattr(plain, "rnn_work"):
         return None
-    device_s = sum(t.get("op_device_s", {}).values())
+    device_s = sum(t.get("rnn_device_s", {}).values())
     if device_s <= 0:
         return None
     least = 0.0

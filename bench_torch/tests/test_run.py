@@ -3,7 +3,8 @@ chip skipped: a sound run is correct, and each fault the cell can have,
 planted under the timed path, makes `correct` false.  Also: no chip, no
 result; JAX or the JAX package loaded in the run, no result; a new cell of an existing driver added with data files alone;
 and a new configuration, with a reference module of its own, added with
-new files alone."""
+new files alone; a train mix's limits name the numbers its check
+compares."""
 
 import hashlib
 import json
@@ -57,6 +58,37 @@ def test_sound_run_is_correct(case):
 def test_fault_is_not_correct(case, fault):
     res = tiny.execute(CASES[case](faults=(fault,)))
     assert res["correct"] is False, res
+
+
+@pytest.mark.parametrize("names", [("loss", "first_grad", "change"),
+                                   ("first_loss", "first_grad", "change"),
+                                   ("first_loss",)])
+def test_the_mix_names_the_numbers_compared(names):
+    """A train mix's limits name the numbers its check compares, and only
+    those; `first_loss` is the first step's gap, never above `loss`."""
+    run = train_run()
+    run.mix["check"]["limits"] = {"unknown_rows": 0.0,
+                                  **{n: 1.0 for n in names}}
+    res = tiny.execute(run)
+    assert set(res["checks"]) == {"unknown_rows", *names}, res["checks"]
+    assert res["correct"] is True, res
+
+
+def test_first_loss_is_the_first_steps_gap():
+    from bench_torch.drivers import train_loader
+    got = {"loss": [2.0, 4.0, 8.0], "first_grad": {"a": 1.0},
+           "change": {"a": 1.0}, "raw_grad": {"a": 1.0}}
+    gaps = train_loader.compare([2.002, 4.0, 8.8], {"a": 1.0}, {"a": 1.0},
+                                got)
+    assert math.isclose(gaps["first_loss"], 1e-3)
+    assert math.isclose(gaps["loss"], 0.1)
+
+
+def test_a_mix_naming_an_unknown_number_is_refused():
+    run = train_run()
+    run.mix["check"]["limits"] = {"unknown_rows": 0.0, "lossy": 1.0}
+    with pytest.raises(ValueError, match="lossy"):
+        tiny.execute(run)
 
 
 def test_traced_run_reports_per_layer_metrics():
