@@ -34,9 +34,14 @@ purpose:
 - under tensor parallelism (parallel/tensor_parallel.py) a split Linear
   gathers its own columns; `conv2d_layer` and `embed` compute their
   split conv's channels and table's columns and gather them, and
-  `birnn_apply` runs cuDNN's RNN on the gathered whole weights (cuDNN
-  takes whole matrices; a split recurrence would need a kernel of its
-  own).
+  `birnn_apply` runs its recurrence on the gathered whole weights;
+- `birnn_apply` picks the recurrence by what it is given
+  (ops/lstm.route): a float32 LSTM runs ops/lstm.BiLSTM, the hand-written
+  CUDA kernel pair on the card (the word-piece cell's listener) and its
+  plain PyTorch version on the CPU; a tanh RNN (the tanh cell, the serving
+  model) and a bf16 LSTM run nn.RNN's own, cuDNN on the card.  Each call
+  runs inside one profiler range, `las.listener.rnn`, which the
+  benchmark's LSTM roofline reads.
 
 Randomness comes from an explicit torch.Generator on the tensor's device:
 a stochastic function given none is a no-op, as a JAX function given no
@@ -54,7 +59,14 @@ from torch import nn
 
 from ..parallel import distributed
 from ..parallel import tensor_parallel as tp
+from ..utils import spans
+from . import lstm
 from .quant import Dense
+
+# the profiler range around each BiRNN call (birnn_apply), and the counter
+# of the frame-steps the LSTM kernels ran
+RNN_RANGE = "las.listener.rnn"
+KERNEL_FRAMES = "las.listener.lstm_kernel_frames"
 
 
 def glorot_uniform_(weight: torch.Tensor, fan_in: int, fan_out: int,
@@ -161,21 +173,40 @@ def make_birnn(in_dim: int, units: int, cell: str = "rnn") -> nn.RNNBase:
 
 def birnn_apply(rnn: nn.RNNBase, xs: torch.Tensor) -> torch.Tensor:
     """(B, T, D) -> (B, T, 2U) = [forward | backward] outputs, from zero
-    states.  Weights split over a model axis are gathered whole first;
-    cuDNN then copies them into its own buffer at every call, as they are
-    not one flat chunk."""
-    if tp.axis_of(rnn) is None:
-        out, _ = rnn(xs)
-        return out
+    states.
+
+    Which path runs (ops/lstm.route): an nn.LSTM on a float32 CUDA tensor
+    runs ops/lstm.BiLSTM with the hand-written recurrence kernels (the
+    word-piece cell's listener), on a float32 or float64 CPU tensor the
+    same Function's plain version; a tanh nn.RNN (the tanh cell, the
+    serving model) and an LSTM in bf16 compute run nn.RNN's own (cuDNN on
+    the card).  Weights split over a model axis are gathered whole first
+    (cuDNN then copies them into its own buffer at every call, as they are
+    not one flat chunk).
+
+    The range contract: after the gather, the whole call (the input
+    projection, both directions and the output) runs inside one profiler
+    range named RNN_RANGE (a no-op without a profiler), so that a profile
+    ties the ops under it, and the autograd nodes they made, to the
+    recurrence, whichever path ran.  A kernel call also counts its
+    frame-steps, 2 x B x T, on `las.listener.lstm_kernel_frames`."""
     weights = [tp.full(rnn, name) for name in rnn._flat_weights_names]
-    h0 = xs.new_zeros(2, xs.shape[0], rnn.hidden_size)
-    if isinstance(rnn, nn.LSTM):
-        out, _, _ = torch.lstm(xs, (h0, torch.zeros_like(h0)), weights,
-                               True, 1, 0.0, rnn.training, True, True)
-    else:
-        out, _ = torch.rnn_tanh(xs, h0, weights, True, 1, 0.0,
-                                rnn.training, True, True)
-    return out
+    with spans.fine(RNN_RANGE):
+        if lstm.route(rnn, xs) == "bilstm":
+            if xs.is_cuda:
+                spans.count(KERNEL_FRAMES, 2 * xs.shape[0] * xs.shape[1])
+            return lstm.bilstm(xs, weights)
+        if tp.axis_of(rnn) is None:
+            out, _ = rnn(xs)
+            return out
+        h0 = xs.new_zeros(2, xs.shape[0], rnn.hidden_size)
+        if isinstance(rnn, nn.LSTM):
+            out, _, _ = torch.lstm(xs, (h0, torch.zeros_like(h0)), weights,
+                                   True, 1, 0.0, rnn.training, True, True)
+        else:
+            out, _ = torch.rnn_tanh(xs, h0, weights, True, 1, 0.0,
+                                    rnn.training, True, True)
+        return out
 
 
 def same_padding(n: int, k: int, stride: int) -> Sequence[int]:

@@ -228,10 +228,14 @@ def graph_note(before: Dict) -> str:
 def listener_note(before: Dict) -> str:
     """The listener's BiRNN frame-steps since the spans.totals() reading
     `before`: rows x padded frames x 2 directions, summed over its
-    BiRNNs (the `las.listener.rnn_frames` counter)."""
-    got = spans.report(before, ("las.listener.rnn_frames",))
-    frames = got.get("las.listener.rnn_frames", {}).get("count", 0)
-    return f"listener BiRNN frame-steps {frames}"
+    BiRNNs (the `las.listener.rnn_frames` counter), and those the LSTM
+    recurrence kernels ran (`las.listener.lstm_kernel_frames`)."""
+    got = spans.report(before, ("las.listener.rnn_frames",
+                                "las.listener.lstm_kernel_frames"))
+    frames, kernel = (got.get(f"las.listener.{name}", {}).get("count", 0)
+                      for name in ("rnn_frames", "lstm_kernel_frames"))
+    return (f"listener BiRNN frame-steps {frames} ({kernel} through the "
+            f"LSTM kernels, {100 * kernel / max(frames, 1):.1f} %)")
 
 
 def clock_note() -> str:

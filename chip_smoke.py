@@ -24,7 +24,17 @@
    bound; each kernel's device time (pass 1, the statistics, pass 2) at
    128 x 10 s and 8 x 2 s from a torch.profiler trace; and torch.stft's
    power spectrum of the same frames at 128 x 10 s, a yardstick for the
-   spectrum stage only.
+   spectrum stage only.  Then the BiLSTM recurrence kernels
+   (csrc/lstm_recurrence.cu, phase_lstm): against their plain version,
+   forward and backward over the whole sequence, at the word-piece cell's
+   longest shapes (48 x 428 and 96 x 214 steps, U 1280), at two row tiles
+   and at a toy width, each beside the plain version's own float32 error
+   against float64 and a stale step the check must refuse; the launches
+   and the kernels' share of the listener's frame-steps in one
+   LAS-6-1280 train step at its published widths (no cuDNN RNN op or
+   kernel left in it); the whole BiLSTM against cuDNN's nn.LSTM
+   (library_ms) and the recurrence alone against its plain version,
+   timed in turns at those shapes, beside their least times.
 3. Serves >= 12 concurrent synthesized requests through
    BatchingRecognizer at the published width (run.sh: cnn listener
    4 x 512, location attention 128 / K 201 / 10 channels, speller
@@ -185,6 +195,11 @@ training, beam, recipe, configs, parallel, tensor-parallel, multihost and
 chain runs (those of the parallel, tensor-parallel and multihost ranks
 and of the chain counted in their processes).  Without CUDA it exits
 non-zero.
+
+    python3 chip_smoke.py --lstm         # phase_lstm alone
+
+prints the card and the recurrence kernels' phase, then their line of
+the kernels.
 
     python3 chip_smoke.py --multichip    # a host with N > 1 GPUs
 
@@ -818,6 +833,288 @@ class CheckedRecognizer(Recognizer):
         if beam_size <= 1:
             self.finite.append(bool(torch.isfinite(out[0]).all()))
         return super()._texts(out, n, beam_size)
+
+
+LSTM_UNITS = 1280                # LAS-6-1280's listener, a direction
+LSTM_SHAPES = ((48, 428, 1280), (96, 214, 1280), (48, 428, 640))
+# the recurrence checked against its plain version: the word-piece cell's
+# longest shapes (48 x 428, 96 x 214), two row tiles, a toy width
+LSTM_CHECKS = ((48, 428, LSTM_UNITS), (96, 214, LSTM_UNITS),
+               (100, 12, LSTM_UNITS), (5, 9, 32))
+# from readings at LSTM_CHECKS on an H100, two seeds (PERF.md's kernel
+# table): the kernels need atol 3.4e-07 at rtol 1e-5 (max abs err
+# 7.2e-07; the plain version's own float32 error against float64 is as
+# large), the plain version in TF32 at least 1.15e-04, a stale step 0.13
+LSTM_TOL = dict(rtol=1e-5, atol=5e-6)
+LSTM_CELL = (Path(__file__).parent / "bench_torch" / "configs"
+             / "las_6_1280_park2019.json")
+FP32_FLOPS = 67e12               # H100 SXM, CUDA cores
+HBM_BYTES_PER_S = 3.35e12
+
+
+def lstm_weights(dev, D: int, U: int, seed: int) -> list:
+    """nn.LSTM's flat weight list at its own init, seeded, bias_hh zero."""
+    rnn = L.make_birnn(D, U, "lstm")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in rnn.parameters():
+            p.uniform_(-U ** -0.5, U ** -0.5, generator=g)
+    return [getattr(rnn, n).detach().to(dev).requires_grad_(
+        n.startswith(("weight", "bias_ih"))) for n in rnn._flat_weights_names]
+
+
+def lstm_recurrences(gates, dout, w_hh, core: str) -> tuple:
+    """The recurrence's forward and backward, both directions, by `core`
+    ('kernel': csrc/lstm_recurrence.cu, 'plain': ops/lstm's plain
+    version) on a copy of gates (B, T, 8U: x W_ih^T + b) and on dout (B,
+    T, 2U): (h, c, the activated gates, the gates' gradient)."""
+    from automatic_speech_recognition_torch.ops import lstm
+    fwd, bwd = ((lstm.recurrence_forward, lstm.recurrence_backward)
+                if core == "kernel" else
+                (lstm.plain_forward, lstm.plain_backward))
+    B, T, G8 = gates.shape
+    act = gates.clone()
+    cells, out = act.new_empty(B, T, G8 // 4), act.new_empty(B, T, G8 // 4)
+    fwd(act, cells, out, w_hh)
+    dgates = torch.empty_like(act)
+    bwd(dgates, dout, act, cells, w_hh)
+    return out, cells, act, dgates
+
+
+def lstm_inputs(dev, B: int, T: int, U: int, seed: int) -> tuple:
+    """(gates, dout, w_hh) of one BiLSTM call, seeded: pre-activations of
+    an input of unit variance through nn.LSTM's init at 1280 inputs
+    (standard deviation (1280 / 3U)^0.5), the output's gradient of unit
+    variance, both directions' W_hh at nn.LSTM's init."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gates = torch.randn(B, T, 8 * U, device=dev, generator=g)
+    gates *= (1280 / (3 * U)) ** 0.5
+    dout = torch.randn(B, T, 2 * U, device=dev, generator=g)
+    w_hh = tuple((torch.rand(4 * U, U, device=dev, generator=g) * 2 - 1)
+                 * U ** -0.5 for _ in range(2))
+    return gates, dout, w_hh
+
+
+def lstm_stale(gates, out, w_hh, t: int):
+    """gates whose forward step t (> 1) takes h_{t-2} where h_{t-1}
+    belongs, in both directions, as a recurrence that read a stale h
+    would: a fault the check must catch."""
+    U = w_hh[0].shape[1]
+    bad = gates.clone()
+    for d, (now, before) in enumerate(((t - 1, t - 2), (t + 1, t + 2))):
+        if 0 <= before < gates.shape[1]:
+            hu = slice(U * d, U * (d + 1))
+            bad[:, t, 4 * U * d:4 * U * (d + 1)] += (
+                out[:, before, hu] - out[:, now, hu]) @ w_hh[d].t()
+    return bad
+
+
+def lstm_compare(name: str, got: tuple, want: tuple, tol: dict) -> dict:
+    """check_close of each of lstm_recurrences' four results: name -> max
+    abs err."""
+    return {k: check_close(f"{name} {k}", a, b, **tol)
+            for k, a, b in zip(("h", "c", "gates", "dgates"), got, want)}
+
+
+def lstm_least_s(B: int, T: int, D: int, U: int) -> tuple:
+    """(least seconds of the whole BiLSTM's forward and backward, least
+    seconds of its recurrences alone): operations at float32's 67 TFLOP/s
+    or bytes at 3.35 TB/s, the larger (bench_torch's las_lstm.rnn_work:
+    3 x the forward's 2 x 4U (D + U) a frame a direction; the recurrences'
+    2 x 4U x U a frame a direction, forward and backward)."""
+    g = 4 * U
+    fwd = T * g * U + g * D + B * T * D + B * T * U + B * T * g
+    bwd = T * g * U + B * T * g + B * T * U + 2 * B * T * D + g * (D + U)
+    whole = max(3 * 2 * 2 * B * T * g * (D + U) / FP32_FLOPS,
+                2 * 4 * (fwd + bwd) / HBM_BYTES_PER_S)
+    rec = 2 * 2 * 2 * B * T * g * U / FP32_FLOPS
+    return whole, rec
+
+
+def lstm_refused(name: str, got: tuple, want: tuple) -> str:
+    """lstm_compare's refusal of a wrong recurrence, or raise."""
+    try:
+        lstm_compare(name, got, want, LSTM_TOL)
+    except AssertionError as e:
+        return str(e)
+    raise AssertionError(f"{name} passes {LSTM_TOL}")
+
+
+def lstm_checks(dev) -> float:
+    """The recurrence kernels against their plain version at each of
+    LSTM_CHECKS, forward and backward over the whole sequence (h, c, the
+    activated gates, the gates' gradient) within LSTM_TOL; beside each,
+    the plain version's own float32 error against float64, and two wrong
+    recurrences the check must refuse: the plain version in TF32, and
+    with a stale h at one step.  Returns the largest error."""
+    worst = 0.0
+    for B, T, U in LSTM_CHECKS:
+        gates, dout, w_hh = lstm_inputs(dev, B, T, U, seed=B * T + U)
+        name = f"lstm {B}x{T}x{U}"
+        want = lstm_recurrences(gates, dout, w_hh, "plain")
+        errs = lstm_compare(name, lstm_recurrences(gates, dout, w_hh,
+                                                   "kernel"), want, LSTM_TOL)
+        f64 = lstm_recurrences(gates.double(), dout.double(),
+                               tuple(w.double() for w in w_hh), "plain")
+        own = {k: float((a.double() - b).abs().max())
+               for k, a, b in zip(errs, want, f64)}
+        worst = max([worst, *errs.values()])
+        line = (f"{name}: kernels = plain, max abs err "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + "; plain float32 vs float64 "
+                + ", ".join(f"{k} {v:.3e}" for k, v in own.items()))
+        mm = torch.backends.cuda.matmul
+        prev, mm.allow_tf32 = mm.allow_tf32, True
+        try:
+            tf32 = lstm_recurrences(gates, dout, w_hh, "plain")
+        finally:
+            mm.allow_tf32 = prev
+        line += f"; in TF32 refused ({lstm_refused(name, tf32, want)})"
+        t = 3 * T // 4
+        stale = lstm_recurrences(lstm_stale(gates, want[0], w_hh, t), dout,
+                                 w_hh, "plain")
+        line += (f"; a stale h at step {t} refused "
+                 f"({lstm_refused(name, stale, want)})")
+        print(line)
+    return worst
+
+
+def lstm_las_step(dev, card: str) -> dict:
+    """One train step of LAS-6-1280 at its published widths (the values
+    of bench_torch/configs/las_6_1280_park2019.json) on a batch of the
+    word-piece cell's longest bucket (48 rows of 1710 frames: 428
+    listener steps; 96 tokens), under torch.profiler after a step that
+    warms it: the recurrence kernels' launches and the frame-steps they
+    ran against the listener's, counted over that step alone, and the
+    cuDNN RNN ops and kernels in it (none)."""
+    from automatic_speech_recognition_torch.ops import lstm
+    from automatic_speech_recognition_torch.utils import spans
+    values = json.loads(LSTM_CELL.read_text())["values"]
+    fields = Config.__dataclass_fields__
+    cfg = Config(**{k: tuple(v) if isinstance(v, list) else v
+                    for k, v in values.items() if k in fields})
+    B, frames, tokens = 48, 1710, 96
+    samples = (frames - 1) * 160 + 400
+    g = torch.Generator(device=dev).manual_seed(11)
+    batch = (0.1 * torch.randn(B, samples, device=dev, generator=g),
+             torch.full((B,), samples, dtype=torch.int32, device=dev),
+             torch.randint(3, cfg.vocab_size, (B, tokens), device=dev,
+                           generator=g, dtype=torch.int32),
+             torch.full((B,), tokens, dtype=torch.int32, device=dev))
+    ts = trainer.create_train_state(cfg, dev)
+    trainer.train_step(ts, batch, cfg)
+    torch.cuda.synchronize()
+    launches = (lstm.recurrence_forward.launches,
+                lstm.recurrence_backward.launches)
+    before = spans.totals()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        loss = float(trainer.train_step(ts, batch, cfg)["loss"])
+        torch.cuda.synchronize()
+    counters = ("las.listener.rnn_frames", L.KERNEL_FRAMES)
+    got = spans.report(before, counters)
+    frames_all, kernel = (got.get(k, {}).get("count", 0) for k in counters)
+    fwd = lstm.recurrence_forward.launches - launches[0]
+    bwd = lstm.recurrence_backward.launches - launches[1]
+    events = prof.events()
+    cudnn_ops = sum("cudnn_rnn" in e.name for e in events)
+    names = [e.name for e in device_intervals(events)]
+    cudnn_kernels = sorted({n[:48] for n in names
+                            if "RNN" in n or "LSTM" in n})
+    ours = {k: sum(k in n for n in names)
+            for k in ("lstm_forward_kernel", "lstm_backward_kernel")}
+    print(f"LAS-6-1280 train step, {B} x {frames} frames, {tokens} tokens "
+          f"[{card}]: loss {loss:.4f}; recurrence launches {fwd} forward + "
+          f"{bwd} backward (kernels in the trace {ours}); listener "
+          f"frame-steps {frames_all}, {kernel} through the kernels "
+          f"({100 * kernel / max(frames_all, 1):.1f} %); cuDNN RNN ops "
+          f"{cudnn_ops}, kernels {cudnn_kernels}")
+    layers_n = cfg.num_enc_layers
+    if not (fwd == bwd == 2 * layers_n and kernel == frames_all > 0
+            and cudnn_ops == 0 and not cudnn_kernels
+            and all(v == 2 * layers_n for v in ours.values())):
+        raise AssertionError("the LSTM listener's step did not run every "
+                             "recurrence through the kernels")
+    return dict(forward_launches=fwd, backward_launches=bwd,
+                frames=frames_all, kernel_frames=kernel)
+
+
+def lstm_row(lk: dict, card: str) -> dict:
+    """The kernels line's entry of the recurrence kernels."""
+    return {"name": "lstm_recurrence", "route": "cuda",
+            "source": "automatic_speech_recognition_torch/csrc/"
+                      "lstm_recurrence.cu",
+            "replaces": None, "max_abs_err": lk["max_abs_err"],
+            "launches": lk["las_step"]["forward_launches"]
+            + lk["las_step"]["backward_launches"],
+            "las_step": lk["las_step"], "shapes": lk["shapes"], "card": card}
+
+
+def phase_lstm(dev, card: str) -> dict:
+    """The BiLSTM recurrence kernels (csrc/lstm_recurrence.cu): against
+    their plain PyTorch version (lstm_checks), one LAS-6-1280 train step's
+    launches and frame-steps (lstm_las_step); then, at the word-piece
+    cell's longest shapes, the whole BiLSTM forward + backward with the
+    kernels and cuDNN's (nn.LSTM, the library_ms yardstick), and the
+    recurrence alone by the kernels and by the plain version, in turns,
+    beside their least times."""
+    from automatic_speech_recognition_torch.ops import lstm
+    t0 = time.perf_counter()
+    _kernels.load("lstm_recurrence")
+    print(f"lstm_recurrence build + load: {time.perf_counter() - t0:.2f} s")
+    print(_kernels.build_log.get("lstm_recurrence", "(already built)").strip())
+    err = lstm_checks(dev)
+    step = lstm_las_step(dev, card)
+    rows = {}
+    for B, T, D in LSTM_SHAPES:
+        U = LSTM_UNITS
+        g = torch.Generator(device=dev).manual_seed(7)
+        weights = lstm_weights(dev, D, U, seed=3)
+        x = torch.randn(B, T, D, device=dev, generator=g).requires_grad_()
+        dout = torch.randn(B, T, 2 * U, device=dev, generator=g)
+        rnn = L.make_birnn(D, U, "lstm").to(dev)
+        with torch.no_grad():
+            for n, p in rnn.named_parameters():
+                p.copy_(weights[rnn._flat_weights_names.index(n)])
+        leaves = [x] + [w for w in weights if w.requires_grad]
+
+        def kernel():
+            torch.autograd.grad(lstm.bilstm(x, weights), leaves, dout)
+
+        def cudnn():
+            out, _ = rnn(x)
+            torch.autograd.grad(out, [x] + list(rnn.parameters()), dout)
+
+        gates, _, w_hh = lstm_inputs(dev, B, T, U, seed=5)
+        fns = {"kernel": kernel, "cudnn": cudnn,
+               "recurrence": lambda: lstm_recurrences(gates, dout, w_hh,
+                                                      "kernel"),
+               "plain": lambda: lstm_recurrences(gates, dout, w_hh, "plain")}
+        for fn in fns.values():
+            fn()                                   # warm: plans, the build
+        runs = {k: [] for k in fns}
+        for k in ("plain", "kernel", "cudnn", "recurrence", "recurrence",
+                  "cudnn", "kernel", "plain"):
+            runs[k].append(cuda_ms(fns[k], 2))
+        ms = {k: float(np.median(v)) for k, v in runs.items()}
+        whole, least_rec = lstm_least_s(B, T, D, U)
+        key = f"{B}x{T}x{D}"
+        rows[key] = dict(ms=ms["kernel"], library_ms=ms["cudnn"],
+                         bound_ms=1e3 * whole,
+                         share=1e3 * whole / ms["kernel"],
+                         recurrence_ms=ms["recurrence"],
+                         plain_ms=ms["plain"],
+                         recurrence_bound_ms=1e3 * least_rec,
+                         recurrence_share=1e3 * least_rec / ms["recurrence"])
+        print(f"lstm BiLSTM fwd+bwd at B {B}, T {T}, D {D}, U {U} [{card}]: "
+              f"kernels {ms['kernel']:.2f} ms (least {1e3 * whole:.2f}, "
+              f"share {rows[key]['share']:.3f}), cuDNN {ms['cudnn']:.2f} ms; "
+              f"the recurrence alone: kernels {ms['recurrence']:.2f} ms "
+              f"(least {1e3 * least_rec:.2f}, share "
+              f"{rows[key]['recurrence_share']:.3f}), plain "
+              f"{ms['plain']:.2f} ms")
+    return dict(max_abs_err=err, las_step=step, shapes=rows)
 
 
 def phase_serving(dev, card: str) -> int:
@@ -3785,8 +4082,13 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if sys.argv[1:] == ["--lstm"]:
+        print(json.dumps({"kernels": [lstm_row(phase_lstm(dev, card),
+                                               card)]}))
+        return 0
 
     k = phase_kernel(dev, card)
+    lk = phase_lstm(dev, card)
     launches = phase_serving(dev, card)
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
@@ -3811,7 +4113,8 @@ def main() -> int:
         "previous_ms": k["old_ms"], "stft_spectrum_ms": k["stft_ms"],
         "ms_8x2s": k["shapes"][TIMED_SHAPES[1][0]]["ms"],
         "previous_ms_8x2s": k["shapes"][TIMED_SHAPES[1][0]]["old_ms"],
-        "pass_ms": k["passes"], "hmma": k["hmma"], "card": card}]}))
+        "pass_ms": k["passes"], "hmma": k["hmma"], "card": card},
+        lstm_row(lk, card)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -644,3 +644,75 @@ def test_graphed_train_steps_match_eager_ones(cuda, cudnn_deterministic,
     assert counted == {"las.speller.steps": N * L,
                        "las.speller.graph_captures": 1,
                        "las.speller.graph_steps": (N - 2) * L}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,steps,units", [
+    (48, 428, 1280), (96, 214, 1280), (100, 12, 1280), (5, 9, 32)])
+def test_lstm_kernels_match_the_plain_recurrence(cuda, rows, steps, units):
+    """The recurrence kernels (csrc/lstm_recurrence.cu) against their
+    plain PyTorch version, forward and backward over the whole sequence
+    (h, c, the activated gates, the gates' gradient), at the word-piece
+    cell's longest shapes (48 x 428 and 96 x 214 steps, U 1280), at two
+    row tiles (100 rows) and at a toy width, within chip_smoke.LSTM_TOL
+    (set from readings at those shapes, PERF.md's kernel table), with
+    the launch counts.  Prints the kernels' ptxas registers, shared
+    memory and spills."""
+    from chip_smoke import (LSTM_TOL, lstm_compare, lstm_inputs,
+                            lstm_recurrences)
+    from automatic_speech_recognition_torch.ops import _kernels, lstm
+    _kernels.load("lstm_recurrence")
+    print(_kernels.build_log.get("lstm_recurrence", "(built before)"))
+    gates, dout, w_hh = lstm_inputs(cuda, rows, steps, units, seed=rows)
+    fwd, bwd = (lstm.recurrence_forward.launches,
+                lstm.recurrence_backward.launches)
+    got = lstm_recurrences(gates, dout, w_hh, "kernel")
+    assert lstm.recurrence_forward.launches == fwd + 2
+    assert lstm.recurrence_backward.launches == bwd + 2
+    want = lstm_recurrences(gates, dout, w_hh, "plain")
+    print(lstm_compare(f"{rows}x{steps}x{units}", got, want, LSTM_TOL))
+
+
+@pytest.mark.cuda
+def test_lstm_kernels_are_deterministic_and_routed(cuda):
+    """Two calls give the same bits; an nn.LSTM BiRNN on a float32 CUDA
+    tensor runs the kernels and counts its frame-steps, a bf16 one and a
+    tanh RNN run cuDNN."""
+    from chip_smoke import lstm_inputs, lstm_recurrences
+    from automatic_speech_recognition_torch.ops import layers, lstm
+    from automatic_speech_recognition_torch.utils import spans
+    gates, dout, w_hh = lstm_inputs(cuda, 7, 30, 64, seed=1)
+    a = lstm_recurrences(gates, dout, w_hh, "kernel")
+    b = lstm_recurrences(gates, dout, w_hh, "kernel")
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    x = torch.randn(7, 30, 24, device=cuda)
+    rnn = layers.make_birnn(24, 64, "lstm").to(cuda)
+    before, totals = lstm.recurrence_forward.launches, spans.totals()
+    layers.birnn_apply(rnn, x)
+    assert lstm.recurrence_forward.launches == before + 2
+    got = spans.report(totals, (layers.KERNEL_FRAMES,))
+    assert got[layers.KERNEL_FRAMES] == {"count": 2 * 7 * 30}
+    assert lstm.route(rnn, x) == "bilstm"
+    assert lstm.route(rnn, x.bfloat16()) == "library"
+    assert lstm.route(layers.make_birnn(24, 64, "rnn"), x) == "library"
+
+
+@pytest.mark.cuda
+def test_lstm_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    from automatic_speech_recognition_torch.ops import lstm
+    B, T, U = 3, 5, 16
+    gates = torch.zeros(B, T, 8 * U, device=cuda)
+    state = [torch.zeros(B, T, 2 * U, device=cuda) for _ in range(2)]
+    w = torch.zeros(4 * U, U, device=cuda)
+    bad = [((gates.double(), *state), (w, w)),
+           ((gates, *state), (w.t(), w)),               # not contiguous
+           ((gates, *state), (w[:, :8], w)),            # shape
+           ((gates, state[0][:, :4], *state[1:]), (w, w)),
+           ((gates.cpu(), *state), (w, w)),
+           ((torch.zeros(B, T, 8 * 6, device=cuda), *state), (w, w))]
+    for args, w_hh in bad:
+        with pytest.raises(ValueError):
+            lstm.recurrence_forward(*args, w_hh)
+    with pytest.raises(ValueError):
+        lstm.recurrence_backward(gates, state[0].double(), gates, state[1],
+                                 (w, w))

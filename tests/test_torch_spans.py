@@ -206,6 +206,8 @@ def test_train_cli_traces_and_logs_the_spans(tmp_path, rng, capsys):
     assert "decoder steps (0.0 %), 0 captures" in last
     frames = int(last.rsplit("listener BiRNN frame-steps ", 1)[1].split()[0])
     assert frames > 0
+    # the CPU's BiRNNs run no LSTM kernel
+    assert f"frame-steps {frames} (0 through the LSTM kernels, 0.0 %)" in last
 
 
 def test_a_greedy_recognizer_call_records_its_layers():
