@@ -39,9 +39,9 @@ purpose:
   (ops/lstm.route): a float32 LSTM runs ops/lstm.BiLSTM, the hand-written
   CUDA kernel pair on the card (the word-piece cell's listener) and its
   plain PyTorch version on the CPU; a tanh RNN (the tanh cell, the serving
-  model) and a bf16 LSTM run nn.RNN's own, cuDNN on the card.  Each call
-  runs inside one profiler range, `las.listener.rnn`, which the
-  benchmark's LSTM roofline reads.
+  model) and a bf16 LSTM run the library's (torch.rnn_tanh / torch.lstm),
+  cuDNN on the card.  Each call runs inside one profiler range,
+  `las.listener.rnn`, which the benchmark's LSTM roofline reads.
 
 Randomness comes from an explicit torch.Generator on the tensor's device:
 a stochastic function given none is a no-op, as a JAX function given no
@@ -179,10 +179,12 @@ def birnn_apply(rnn: nn.RNNBase, xs: torch.Tensor) -> torch.Tensor:
     runs ops/lstm.BiLSTM with the hand-written recurrence kernels (the
     word-piece cell's listener), on a float32 or float64 CPU tensor the
     same Function's plain version; a tanh nn.RNN (the tanh cell, the
-    serving model) and an LSTM in bf16 compute run nn.RNN's own (cuDNN on
-    the card).  Weights split over a model axis are gathered whole first
-    (cuDNN then copies them into its own buffer at every call, as they are
-    not one flat chunk).
+    serving model) and an LSTM in bf16 compute run the library's
+    recurrence, torch.rnn_tanh / torch.lstm, the call nn.RNN's forward
+    makes (cuDNN on the card), on the module's own tensors.  Weights split
+    over a model axis are gathered whole first, and bf16 copies are
+    separate tensors: cuDNN copies either into its own buffer at every
+    call, as they are not one flat chunk.
 
     The range contract: after the gather, the whole call (the input
     projection, both directions and the output) runs inside one profiler
@@ -196,9 +198,6 @@ def birnn_apply(rnn: nn.RNNBase, xs: torch.Tensor) -> torch.Tensor:
             if xs.is_cuda:
                 spans.count(KERNEL_FRAMES, 2 * xs.shape[0] * xs.shape[1])
             return lstm.bilstm(xs, weights)
-        if tp.axis_of(rnn) is None:
-            out, _ = rnn(xs)
-            return out
         h0 = xs.new_zeros(2, xs.shape[0], rnn.hidden_size)
         if isinstance(rnn, nn.LSTM):
             out, _, _ = torch.lstm(xs, (h0, torch.zeros_like(h0)), weights,

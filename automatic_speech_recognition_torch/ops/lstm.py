@@ -20,8 +20,8 @@ step's h_prev for W_hh's gradient), the place of cuDNN's reserve.
 `route` says which path a BiRNN takes (ops/layers.birnn_apply): an
 nn.LSTM in float32 (or float64 on the CPU) takes BiLSTM, which runs the
 kernels on a CUDA tensor and the plain version on a CPU one; a tanh
-nn.RNN, and an LSTM in any other dtype (bf16 compute), nn.RNN's own
-(cuDNN on the card).
+nn.RNN, and an LSTM in any other dtype (bf16 compute), the library's
+recurrence (cuDNN on the card).
 """
 
 from __future__ import annotations
@@ -39,7 +39,8 @@ _I = ctypes.c_int
 
 
 def route(rnn: nn.RNNBase, xs: torch.Tensor) -> str:
-    """'bilstm' (BiLSTM) or 'library' (nn.RNN's own) for a BiRNN on xs."""
+    """'bilstm' (BiLSTM) or 'library' (torch.rnn_tanh / torch.lstm) for a
+    BiRNN on xs."""
     dtypes = ((torch.float32,) if xs.is_cuda
               else (torch.float32, torch.float64))
     return ("bilstm" if isinstance(rnn, nn.LSTM) and xs.dtype in dtypes
@@ -116,10 +117,6 @@ def recurrence_forward(gates: torch.Tensor, cells: torch.Tensor,
             w_hh[d].data_ptr(), gates.data_ptr(), cells.data_ptr(),
             out.data_ptr(), counter[d].data_ptr(), B, T, U, d, stream),
             "lstm_forward_kernel")
-        recurrence_forward.launches += 1
-
-
-recurrence_forward.launches = 0
 
 
 def recurrence_backward(dgates: torch.Tensor, dout: torch.Tensor,
@@ -144,10 +141,6 @@ def recurrence_backward(dgates: torch.Tensor, dout: torch.Tensor,
             dout.data_ptr(), dgates.data_ptr(), part.data_ptr(),
             dcell.data_ptr(), counter[d].data_ptr(), B, T, U, d, stream),
             "lstm_backward_kernel")
-        recurrence_backward.launches += 1
-
-
-recurrence_backward.launches = 0
 
 
 def _order(d: int, T: int) -> range:

@@ -18,13 +18,12 @@
    against the plain version).  Then to the NumPy speechpy golden on
    synthesized speech (5e-3).  Counts the HMMA (tensor-core)
    instructions of the built library (cuobjdump -sass).  Times the
-   kernel, the previous kernel (built from a scratch copy of its source
-   at BASELINE_SOURCE, when one is there) and the plain version in turns
-   at 128 x 10 s and the serving and training shapes, each beside its
-   bound; each kernel's device time (pass 1, the statistics, pass 2) at
-   128 x 10 s and 8 x 2 s from a torch.profiler trace; and torch.stft's
-   power spectrum of the same frames at 128 x 10 s, a yardstick for the
-   spectrum stage only.  Then the BiLSTM recurrence kernels
+   kernel and the plain version in turns at 128 x 10 s and the serving
+   and training shapes, each beside its bound (bench_torch.work's
+   frontend_least_s); each kernel's device time (pass 1, the statistics,
+   pass 2) at 128 x 10 s and 8 x 2 s from a torch.profiler trace; and
+   torch.stft's power spectrum of the same frames at 128 x 10 s, a
+   yardstick for the spectrum stage only.  Then the BiLSTM recurrence kernels
    (csrc/lstm_recurrence.cu, phase_lstm): against their plain version,
    forward and backward over the whole sequence, at the word-piece cell's
    longest shapes (48 x 428 and 96 x 214 steps, U 1280), at two row tiles
@@ -232,7 +231,6 @@ the model split over 'cuda:0,cuda:1' against one GPU.
 from __future__ import annotations
 
 import copy
-import ctypes
 import glob
 import json
 import logging
@@ -251,6 +249,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from bench_torch import work
+from bench_torch.trace import _is_device
 from automatic_speech_recognition_torch.config import Config, parse_args
 from automatic_speech_recognition_torch.data import shards
 from automatic_speech_recognition_torch.data.pipeline import BucketedLoader
@@ -299,13 +299,11 @@ SR = 16000
 RTOL, ATOL = 1e-4, 2e-4          # tests/test_pallas_frontend.py
 GOLDEN_TOL = 5e-3                # tests/test_frontend_golden.py
 BUCKETS = [2, 4, 8, 16, 32]
+# the timed frontend's settings, as bench_torch.work counts its work
+FRONTEND_WORK = dict(fft_length=512, feat_dim=13, feat_type="mfcc",
+                     num_mel_filters=40, sample_rate=SR)
 KERNEL_SOURCE = "automatic_speech_recognition_torch/csrc/fused_frontend.cu"
 REPLACES = "automatic_speech_recognition_tpu/ops/pallas_frontend.py:177"
-# the previous kernel's source, for timing in turns with the new one: a
-# scratch copy in a git-ignored directory, never committed
-BASELINE_SOURCE = Path("_baseline/fused_frontend.cu")
-H100_HBM = 3.35e12               # bytes/s, H100 SXM data sheet
-H100_TF32 = 495e12               # dense TF32 tensor-core FLOP/s
 # (name, batch, samples): bench.py's shape, serving's buckets of 8, and
 # the training buckets (frames < 200 / 800 / 1600) at their batch sizes
 TIMED_SHAPES = [("128 x 10 s", 128, 10 * SR),
@@ -369,6 +367,18 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def traced(fn, name: str = "traced"):
+    """(fn(), the events of a torch.profiler trace, CPU and CUDA) of fn
+    inside the host range `name`, through a synchronize."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(name):
+            out = fn()
+        torch.cuda.synchronize()
+    return out, prof.events()
+
+
 def speech(rng: np.random.Generator, seconds: float) -> np.ndarray:
     names = [p for p in PHONES if p not in ("SIL", "SP")]
     phones = list(rng.choice(names, max(int(seconds * 9), 1)))
@@ -391,27 +401,14 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     return float(err.max())
 
 
-def frontend_work(p, B: int, S: int, T: int, D: int):
-    """(bytes, operations) the fused frontend must move and do at this
-    shape: audio read once, (B, T, D, 3) features written once, featlen;
-    the shared-subsegment DFT, the twiddle combine, the power spectrum,
-    the mel filterbank's nonzeros and the DCT (PERF.md, bring_up table)."""
-    nbytes = 4 * (B * S + B * T * D * 3 + B)
-    nseg = p["step"] * (T - 1) + p["J"]
-    per_utt = (2 * nseg * p["slen"] * 2 * p["nbins"]          # segment DFT
-               + 8 * T * p["nbins"] * p["J"]                   # combine
-               + 3 * T * p["nbins"]                            # |X|^2 / N
-               + 2 * T * len(p["melw"])                        # mel
-               + 2 * T * p["F"] * (D - 1))                     # DCT
-    return nbytes, B * per_utt
-
-
-def bound(p, B: int, S: int, T: int, D: int):
-    """(bound ms, 'bytes' or 'operations'): the larger of the bytes over
-    HBM's rate and the operations over the TF32 tensor-core peak."""
-    nbytes, ops = frontend_work(p, B, S, T, D)
-    t_bytes, t_ops = nbytes / H100_HBM * 1e3, ops / H100_TF32 * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(B: int, S: int, T: int):
+    """(bound ms, 'bytes' or 'operations') of one mfcc 13 + CMVN + deltas
+    frontend call: bench_torch.work's least time, the larger of its bytes
+    over HBM's rate and its operations over the TF32 tensor-core peak."""
+    least = work.frontend_least_s(FRONTEND_WORK, B, S, T)
+    by_bytes = (work.frontend_bytes(B, S, T, FRONTEND_WORK["feat_dim"])
+                / work.HBM_BYTES_PER_S)
+    return 1e3 * least, "bytes" if by_bytes >= least else "operations"
 
 
 def kernel_vs_plain(dev, audio, audiolen, name: str, sample_rate: int = SR):
@@ -628,65 +625,23 @@ def golden(dev, rng) -> None:
               f"max_abs_err {err:.3e}")
 
 
-def baseline_kernel(dev):
-    """The previous kernel, built from a scratch copy of its source when
-    one lies at BASELINE_SOURCE (never committed), for timing in turns
-    with the new one; None without it.  It takes the wrapper's arguments
-    (mfcc 13 + CMVN) with its per-tile CMVN partials, (B, n_tiles, 3, D),
-    as the statistics scratch."""
-    if not BASELINE_SOURCE.exists():
-        print(f"previous kernel: not timed (no source at {BASELINE_SOURCE})")
-        return None
-    lib = _kernels.load("fused_frontend_baseline", BASELINE_SOURCE)
-    fn = lib.asr_fused_frontend
-    fn.argtypes = cuda_frontend.ARGTYPES["asr_fused_frontend"]
-    fn.restype = ctypes.c_int
-    p = cuda_frontend._device_plan(400, 160, 512, 13, "mfcc", 40, SR, dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-
-    def run(audio, featlen, T):
-        B, S = audio.shape
-        tl = cuda_frontend.tiling(p, B, T, sms, 13)
-        raw = torch.empty((B, T, 13), device=dev)
-        stats = torch.empty((B, tl.n_tiles, 3, 13), device=dev)
-        out = torch.empty((B, T, 13, 3), device=dev)
-        consts = [p[k].data_ptr() for k in ("basis", "twiddle", "melptr",
-                                            "melbin", "melw", "dct")]
-        rc = fn(audio.data_ptr(), featlen.data_ptr(), *consts,
-                raw.data_ptr(), stats.data_ptr(), out.data_ptr(), B, S, T,
-                160, 512, *(p[k] for k in ("slen", "slen_pad", "sstride", "J",
-                                           "step", "nbins", "nb", "ksup",
-                                           "F")),
-                13, len(p["melw"]), len(p["dct"]), 1, 1, tl.mt, tl.tt,
-                tl.n_tiles, int(tl.basis_in_smem), tl.smem,
-                min(-(-B * tl.n_tiles // cuda_frontend.TEAMS), sms),
-                torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"previous kernel launch failed: {rc}")
-        return out
-    print(f"previous kernel built from {BASELINE_SOURCE}:\n"
-          f"{_kernels.build_log.get('fused_frontend_baseline', '').strip()}")
-    return run
-
-
 def kernel_ms(fn, names, reps: int = 20, traces: int = 2) -> dict:
     """Mean device ms per launch of each kernel whose name holds one of
     `names`, from a torch.profiler trace of reps calls of fn, each of
     which must launch it once.  A trace that lost launches (one held 18
     of 20 on an H100) is taken again, up to `traces` in all; the times
     come only from a trace that holds every launch."""
+    def calls():
+        for _ in range(reps):
+            fn()
+
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(traces):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = device_intervals(prof.events())
+        _, events = traced(calls)
         hits = {name: [e.time_range.elapsed_us() for e in events
-                       if name in e.name] for name in names}
+                       if _is_device(e) and name in e.name]
+                for name in names}
         short = {n: len(h) for n, h in hits.items() if len(h) != reps}
         if not short:
             return {n: sum(h) / reps / 1e3 for n, h in hits.items()}
@@ -697,13 +652,12 @@ def kernel_ms(fn, names, reps: int = 20, traces: int = 2) -> dict:
 
 
 def in_turns(fns: dict, reps: int, rounds: int = 3) -> dict:
-    """Median ms per call of each function, timed in turns: plain, new,
-    old, old, new, plain (CUDA events, reps calls a reading)."""
-    order = [k for k in ("plain", "kernel", "old", "old", "kernel", "plain")
-             if k in fns]
+    """Median ms per call of fns["plain"] and fns["kernel"], timed in
+    turns: plain, kernel, kernel, plain (CUDA events, reps calls a
+    reading)."""
     runs = {k: [] for k in fns}
     for _ in range(rounds):
-        for k in order:
+        for k in ("plain", "kernel", "kernel", "plain"):
             runs[k].append(cuda_ms(fns[k], reps))
     return {k: (float(np.median(v)), [round(x, 4) for x in v])
             for k, v in runs.items()}
@@ -721,7 +675,7 @@ def hmma_count() -> int:
 
 def phase_kernel(dev, card: str) -> dict:
     """Kernel vs plain and golden on the card; times at the main path's
-    shapes (new, previous and plain in turns), pass 2 alone, the stft
+    shapes (kernel and plain in turns), pass 2 alone, the stft
     yardstick, the HMMA count; returns the kernel line's numbers."""
     rng = np.random.default_rng(0)
     worst = kernel_cases(dev, rng)
@@ -733,8 +687,6 @@ def phase_kernel(dev, card: str) -> dict:
     if hmma == 0:
         raise AssertionError("the built kernel has no tensor-core (HMMA) "
                              "instruction")
-    old = baseline_kernel(dev)
-    p = cuda_frontend.plan(400, 160, 512, 13, "mfcc", 40, SR)
     res = {}
     for name, B, S in TIMED_SHAPES:
         T = host.num_frames(S, 400, 160)
@@ -749,25 +701,19 @@ def phase_kernel(dev, card: str) -> dict:
                                                             **kw)}
         want = fns["plain"]()
         check_close(f"{name} new", fns["kernel"](), want, RTOL, ATOL)
-        if old is not None:
-            fns["old"] = lambda: old(audio, featlen, T)
-            check_close(f"{name} previous", fns["old"](), want, RTOL, ATOL)
         times = in_turns(fns, 10 if B * S > 8 * 32 * SR else 50)
-        b_ms, b_by = bound(p, B, S, T, 13)
+        b_ms, b_by = bound(B, S, T)
         ms = times["kernel"][0]
-        old_txt = (f"previous {times['old'][0]:.4f} ms (runs "
-                   f"{times['old'][1]}), " if "old" in times else "")
         print(f"frontend {name} mfcc13+cmvn+deltas, T {T} [{card}]: new "
-              f"{ms:.4f} ms (runs {times['kernel'][1]}), {old_txt}plain "
+              f"{ms:.4f} ms (runs {times['kernel'][1]}), plain "
               f"{times['plain'][0]:.4f} ms (runs {times['plain'][1]}); bound "
               f"{b_ms * 1e3:.2f} us ({b_by}), share {b_ms / ms:.4f}")
-        res[name] = dict(ms=ms, plain_ms=times["plain"][0],
-                         old_ms=times["old"][0] if "old" in times else None,
-                         bound_ms=b_ms, bound_by=b_by)
+        res[name] = dict(ms=ms, plain_ms=times["plain"][0], bound_ms=b_ms,
+                         bound_by=b_by)
         del audio, fns, want
 
     # each kernel's device time at 128 x 10 s and serving's 8 x 2 s, from
-    # a trace of whole calls, the previous kernel's beside it
+    # a trace of whole calls
     passes = {}
     names = ("features_kernel", "cmvn_stats_kernel", "cmvn_deltas_kernel")
     for name, B, S in TIMED_SHAPES[:2]:
@@ -778,18 +724,13 @@ def phase_kernel(dev, card: str) -> dict:
             audio, featlen, flen=400, fstride=160, fft_length=512,
             feat_dim=13, feat_type="mfcc", num_mel_filters=40,
             sample_rate=SR, frames_max=T, apply_cmvn=True), names)
-        t_old = (kernel_ms(lambda: old(audio, featlen, T),
-                           (names[0], names[2])) if old else None)
         passes[name] = t
-        old_txt = (f"; previous kernel: pass 1 {t_old[names[0]]:.4f} ms, "
-                   f"pass 2 with the partials' merge {t_old[names[2]]:.4f} "
-                   "ms" if t_old else "")
         print(f"device time per launch at {name} (torch.profiler, 20 "
               f"calls) [{card}]: pass 1 {t[names[0]]:.4f} ms, statistics "
               f"{t[names[1]]:.4f} ms, pass 2 (normalize + deltas) "
               f"{t[names[2]]:.4f} ms, "
               f"{-(-T // cuda_frontend.pass2_frames(13))} blocks per "
-              f"utterance{old_txt}")
+              f"utterance")
 
     # yardstick for the spectrum stage only: torch.stft's power spectrum
     # of the same frames at 128 x 10 s (a 400-sample ones window centred
@@ -848,8 +789,8 @@ LSTM_CHECKS = ((48, 428, LSTM_UNITS), (96, 214, LSTM_UNITS),
 LSTM_TOL = dict(rtol=1e-5, atol=5e-6)
 LSTM_CELL = (Path(__file__).parent / "bench_torch" / "configs"
              / "las_6_1280_park2019.json")
-FP32_FLOPS = 67e12               # H100 SXM, CUDA cores
-HBM_BYTES_PER_S = 3.35e12
+LSTM_KERNELS = ("lstm_forward_kernel", "lstm_backward_kernel")
+LEAD_KERNELS = 8                 # lstm_traced's throwaway head of a trace
 
 
 def lstm_weights(dev, D: int, U: int, seed: int) -> list:
@@ -909,6 +850,36 @@ def lstm_stale(gates, out, w_hh, t: int):
     return bad
 
 
+def lstm_launches(events) -> tuple:
+    """(forward, backward) launches of the recurrence kernels in a
+    torch.profiler trace's events."""
+    names = [e.name for e in events if _is_device(e)]
+    return tuple(sum(k in n for n in names) for k in LSTM_KERNELS)
+
+
+def lstm_traced(fn, want: tuple, traces: int = 3) -> tuple:
+    """(fn(), (forward, backward) recurrence launches in its trace).  A
+    trace can lose its first device records: on an H100, once CUDA graphs
+    had replayed under a profiler earlier in the process, every later
+    trace lost its first three.  So fn runs after LEAD_KERNELS
+    one-element kernels inside the trace, and a trace that still lost a
+    launch is taken again, up to `traces` in all (as kernel_ms does); the
+    counts are the last trace's."""
+    def lead_then_fn():
+        for _ in range(LEAD_KERNELS):
+            torch.zeros(1, device="cuda")
+        return fn()
+
+    for attempt in range(traces):
+        out, events = traced(lead_then_fn)
+        got = lstm_launches(events)
+        if got == want:
+            break
+        print(f"trace {attempt + 1} of {traces} holds {got} recurrence "
+              f"launches, expected {want}")
+    return out, got
+
+
 def lstm_compare(name: str, got: tuple, want: tuple, tol: dict) -> dict:
     """check_close of each of lstm_recurrences' four results: name -> max
     abs err."""
@@ -925,9 +896,10 @@ def lstm_least_s(B: int, T: int, D: int, U: int) -> tuple:
     g = 4 * U
     fwd = T * g * U + g * D + B * T * D + B * T * U + B * T * g
     bwd = T * g * U + B * T * g + B * T * U + 2 * B * T * D + g * (D + U)
-    whole = max(3 * 2 * 2 * B * T * g * (D + U) / FP32_FLOPS,
-                2 * 4 * (fwd + bwd) / HBM_BYTES_PER_S)
-    rec = 2 * 2 * 2 * B * T * g * U / FP32_FLOPS
+    fp32 = work.PEAK_FLOPS["float32"]
+    whole = max(3 * 2 * 2 * B * T * g * (D + U) / fp32,
+                2 * 4 * (fwd + bwd) / work.HBM_BYTES_PER_S)
+    rec = 2 * 2 * 2 * B * T * g * U / fp32
     return whole, rec
 
 
@@ -987,7 +959,6 @@ def lstm_las_step(dev, card: str) -> dict:
     warms it: the recurrence kernels' launches and the frame-steps they
     ran against the listener's, counted over that step alone, and the
     cuDNN RNN ops and kernels in it (none)."""
-    from automatic_speech_recognition_torch.ops import lstm
     from automatic_speech_recognition_torch.utils import spans
     values = json.loads(LSTM_CELL.read_text())["values"]
     fields = Config.__dataclass_fields__
@@ -1004,36 +975,25 @@ def lstm_las_step(dev, card: str) -> dict:
     ts = trainer.create_train_state(cfg, dev)
     trainer.train_step(ts, batch, cfg)
     torch.cuda.synchronize()
-    launches = (lstm.recurrence_forward.launches,
-                lstm.recurrence_backward.launches)
     before = spans.totals()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        loss = float(trainer.train_step(ts, batch, cfg)["loss"])
-        torch.cuda.synchronize()
+    out, events = traced(lambda: trainer.train_step(ts, batch, cfg))
+    loss = float(out["loss"])
     counters = ("las.listener.rnn_frames", L.KERNEL_FRAMES)
     got = spans.report(before, counters)
     frames_all, kernel = (got.get(k, {}).get("count", 0) for k in counters)
-    fwd = lstm.recurrence_forward.launches - launches[0]
-    bwd = lstm.recurrence_backward.launches - launches[1]
-    events = prof.events()
+    fwd, bwd = lstm_launches(events)
     cudnn_ops = sum("cudnn_rnn" in e.name for e in events)
-    names = [e.name for e in device_intervals(events)]
-    cudnn_kernels = sorted({n[:48] for n in names
-                            if "RNN" in n or "LSTM" in n})
-    ours = {k: sum(k in n for n in names)
-            for k in ("lstm_forward_kernel", "lstm_backward_kernel")}
+    cudnn_kernels = sorted({e.name[:48] for e in events if _is_device(e)
+                            and ("RNN" in e.name or "LSTM" in e.name)})
     print(f"LAS-6-1280 train step, {B} x {frames} frames, {tokens} tokens "
-          f"[{card}]: loss {loss:.4f}; recurrence launches {fwd} forward + "
-          f"{bwd} backward (kernels in the trace {ours}); listener "
+          f"[{card}]: loss {loss:.4f}; recurrence launches in the trace "
+          f"{fwd} forward + {bwd} backward; listener "
           f"frame-steps {frames_all}, {kernel} through the kernels "
           f"({100 * kernel / max(frames_all, 1):.1f} %); cuDNN RNN ops "
           f"{cudnn_ops}, kernels {cudnn_kernels}")
     layers_n = cfg.num_enc_layers
     if not (fwd == bwd == 2 * layers_n and kernel == frames_all > 0
-            and cudnn_ops == 0 and not cudnn_kernels
-            and all(v == 2 * layers_n for v in ours.values())):
+            and cudnn_ops == 0 and not cudnn_kernels):
         raise AssertionError("the LSTM listener's step did not run every "
                              "recurrence through the kernels")
     return dict(forward_launches=fwd, backward_launches=bwd,
@@ -1292,20 +1252,12 @@ def run_train_cli(shard_dir: str, save_dir: str, epoch: int,
     return launches, ts
 
 
-def device_intervals(events):
-    """The device's kernel and copy events of a profiler trace, without
-    the device-side copies of record_function ranges."""
-    return [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-
-
 def device_busy(events, name: str):
     """(busy, span) in ms from a profiler trace: the union of the device's
     kernel and copy intervals, and the span from the start of the host
     range `name` to the end of the last of them."""
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in device_intervals(events))
+                   for e in events if _is_device(e))
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
     start = min(e.time_range.start for e in events
@@ -1325,7 +1277,7 @@ def device_busy(events, name: str):
 def top_kernels(events, n: int = 6) -> str:
     """Device time by kernel name, the n largest, with launch counts."""
     total, calls = {}, {}
-    for e in device_intervals(events):
+    for e in filter(_is_device, events):
         total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us()
         calls[e.name] = calls.get(e.name, 0) + 1
     top = sorted(total, key=total.get, reverse=True)[:n]
@@ -1354,13 +1306,7 @@ def step_timings(ts, batch, cfg: Config, card: str) -> None:
                                      batch[2].shape[1], ts.generator,
                                      ts.step)
     fwd_ms = float(np.median([cuda_ms(forward, 1) for _ in range(3)]))
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        with torch.profiler.record_function("train_step"):
-            step()
-        torch.cuda.synchronize()
-    events = prof.events()
+    _, events = traced(step, "train_step")
     busy_ms, span_ms = device_busy(events, "train_step")
     ms = float(np.median(times))
     print(f"train step, {S / SR:.3f} s bucket, batch {B}, "
@@ -1601,14 +1547,8 @@ def phase_beam(dev, card: str) -> int:
           f"{[t[:24] for t in served[:3]]}")
 
     rec = recs["joint_ctc"]
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        with torch.profiler.record_function("beam_batch"):
-            rec.transcribe_signals(batches[8], beam_size=BEAM_SIZE,
-                                   pad_seconds=8)
-        torch.cuda.synchronize()
-    events = prof.events()
+    _, events = traced(lambda: rec.transcribe_signals(
+        batches[8], beam_size=BEAM_SIZE, pad_seconds=8), "beam_batch")
     busy_ms, span_ms = device_busy(events, "beam_batch")
     print(f"profiled beam batch, 8 s bucket, joint CTC [{card}]: device busy "
           f"{busy_ms:.2f} ms of {span_ms:.2f} ms, idle share "
@@ -2083,15 +2023,10 @@ def float_state(ts) -> bool:
 def profiled_step(ts, batch, cfg: Config):
     """(device busy ms, idle share, top kernels, cuDNN RNN kernels:
     launches and names) of one profiled train step."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        with torch.profiler.record_function("train_step"):
-            trainer.train_step(ts, batch, cfg)
-        torch.cuda.synchronize()
-    events = prof.events()
+    _, events = traced(lambda: trainer.train_step(ts, batch, cfg),
+                       "train_step")
     busy_ms, span_ms = device_busy(events, "train_step")
-    rnn = [e.name for e in device_intervals(events) if "RNN" in e.name]
+    rnn = [e.name for e in events if _is_device(e) and "RNN" in e.name]
     return (busy_ms, 1 - busy_ms / span_ms, top_kernels(events, 4),
             (len(rnn), sorted({n[:48] for n in rnn})[:3]))
 
@@ -4110,9 +4045,9 @@ def main() -> int:
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "share": k["share"], "library_ms": None,
-        "previous_ms": k["old_ms"], "stft_spectrum_ms": k["stft_ms"],
+        "previous_ms": None, "stft_spectrum_ms": k["stft_ms"],
         "ms_8x2s": k["shapes"][TIMED_SHAPES[1][0]]["ms"],
-        "previous_ms_8x2s": k["shapes"][TIMED_SHAPES[1][0]]["old_ms"],
+        "previous_ms_8x2s": None,
         "pass_ms": k["passes"], "hmma": k["hmma"], "card": card},
         lstm_row(lk, card)]}))
     print(json.dumps({"ok": True, "device": {

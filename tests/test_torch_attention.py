@@ -6,6 +6,8 @@ feature is F.conv1d in the port and a Toeplitz matmul in JAX (same math,
 sums in another order).
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import jax
 import numpy as np
 import pytest

@@ -14,6 +14,8 @@ torch.Generators, not JAX keys, so they are held to their ranges and
 statistics with fixed seeds.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,8 @@ another order).  Ranks without a hypothesis tie at NEG and are not
 compared.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import logging
 
 import jax

@@ -4,6 +4,8 @@ the CPU for a requested GPU, chip_smoke.py refuses to run without CUDA or
 outside the repository, and the kernel build targets sm_90a into a
 git-ignored directory."""
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import ast
 import os
 import pkgutil

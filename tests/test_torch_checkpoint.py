@@ -5,6 +5,8 @@ uninterrupted one did, an overwrite is crash-safe, old epochs are pruned,
 and a weights-only restore hands the JAX package trees it can evaluate.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import os
 
 import numpy as np

@@ -10,6 +10,8 @@ package's brute-force alignment enumeration (host_reference_prefix_logp,
 NumPy) is the oracle at T <= 4.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,8 @@ speller's CUDA graph pair (models/las.graphed_loop) is held to the eager
 loop bit for bit: it replays the kernels the loop launches.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import collections
 import threading
 
@@ -656,19 +658,19 @@ def test_lstm_kernels_match_the_plain_recurrence(cuda, rows, steps, units):
     cell's longest shapes (48 x 428 and 96 x 214 steps, U 1280), at two
     row tiles (100 rows) and at a toy width, within chip_smoke.LSTM_TOL
     (set from readings at those shapes, PERF.md's kernel table), with
-    the launch counts.  Prints the kernels' ptxas registers, shared
+    the launches a torch.profiler trace of the call holds (a forward and
+    a backward kernel a direction; a trace that lost one is taken again,
+    chip_smoke.lstm_traced).  Prints the kernels' ptxas registers, shared
     memory and spills."""
     from chip_smoke import (LSTM_TOL, lstm_compare, lstm_inputs,
-                            lstm_recurrences)
-    from automatic_speech_recognition_torch.ops import _kernels, lstm
+                            lstm_recurrences, lstm_traced)
+    from automatic_speech_recognition_torch.ops import _kernels
     _kernels.load("lstm_recurrence")
     print(_kernels.build_log.get("lstm_recurrence", "(built before)"))
     gates, dout, w_hh = lstm_inputs(cuda, rows, steps, units, seed=rows)
-    fwd, bwd = (lstm.recurrence_forward.launches,
-                lstm.recurrence_backward.launches)
-    got = lstm_recurrences(gates, dout, w_hh, "kernel")
-    assert lstm.recurrence_forward.launches == fwd + 2
-    assert lstm.recurrence_backward.launches == bwd + 2
+    got, launches = lstm_traced(
+        lambda: lstm_recurrences(gates, dout, w_hh, "kernel"), (2, 2))
+    assert launches == (2, 2)
     want = lstm_recurrences(gates, dout, w_hh, "plain")
     print(lstm_compare(f"{rows}x{steps}x{units}", got, want, LSTM_TOL))
 
@@ -676,9 +678,10 @@ def test_lstm_kernels_match_the_plain_recurrence(cuda, rows, steps, units):
 @pytest.mark.cuda
 def test_lstm_kernels_are_deterministic_and_routed(cuda):
     """Two calls give the same bits; an nn.LSTM BiRNN on a float32 CUDA
-    tensor runs the kernels and counts its frame-steps, a bf16 one and a
-    tanh RNN run cuDNN."""
-    from chip_smoke import lstm_inputs, lstm_recurrences
+    tensor runs the kernels (a forward and a backward launch a direction
+    in a torch.profiler trace of its forward and backward) and counts its
+    frame-steps, a bf16 one and a tanh RNN run cuDNN."""
+    from chip_smoke import lstm_inputs, lstm_recurrences, lstm_traced
     from automatic_speech_recognition_torch.ops import layers, lstm
     from automatic_speech_recognition_torch.utils import spans
     gates, dout, w_hh = lstm_inputs(cuda, 7, 30, 64, seed=1)
@@ -687,11 +690,13 @@ def test_lstm_kernels_are_deterministic_and_routed(cuda):
     assert all(torch.equal(p, q) for p, q in zip(a, b))
     x = torch.randn(7, 30, 24, device=cuda)
     rnn = layers.make_birnn(24, 64, "lstm").to(cuda)
-    before, totals = lstm.recurrence_forward.launches, spans.totals()
+    totals = spans.totals()
     layers.birnn_apply(rnn, x)
-    assert lstm.recurrence_forward.launches == before + 2
     got = spans.report(totals, (layers.KERNEL_FRAMES,))
     assert got[layers.KERNEL_FRAMES] == {"count": 2 * 7 * 30}
+    _, launches = lstm_traced(
+        lambda: layers.birnn_apply(rnn, x).sum().backward(), (2, 2))
+    assert launches == (2, 2)
     assert lstm.route(rnn, x) == "bilstm"
     assert lstm.route(rnn, x.bfloat16()) == "library"
     assert lstm.route(layers.make_birnn(24, 64, "rnn"), x) == "library"

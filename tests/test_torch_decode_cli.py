@@ -7,6 +7,8 @@ signals(beam_size > 1) -- against the JAX package on converted weights.
 The LAS checkpoint is written by the port's trainer, the LM directory by
 models/char_rnn.save_lm_dir."""
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import os
 
 import jax

@@ -28,6 +28,8 @@ shared generator) advance alike on both ranks, the per-row streams
 ranks end with the same parameters.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import json
 import os
 import shutil
@@ -165,7 +167,6 @@ def _spawn(code, args_of_rank, world=2):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
                    LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
                    MASTER_PORT=port, CUDA_VISIBLE_DEVICES="",
-                   OMP_NUM_THREADS="1",
                    PYTHONPATH=os.pathsep.join(
                        [REPO] + os.environ.get("PYTHONPATH", "").split(
                            os.pathsep)))

@@ -25,6 +25,8 @@ lists the CPU twice runs two spawned worker processes.
   serve's /healthz lists both workers.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import json
 import multiprocessing as mp
 import os

@@ -8,6 +8,8 @@ port.  Tolerance rtol 1e-4 / atol 2e-4: the one the TPU kernel is held to
 kernel itself is checked on the card by tests/test_torch_cuda.py.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import ctypes
 import math
 import re

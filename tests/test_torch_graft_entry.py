@@ -13,6 +13,8 @@ started through the multi-host environment, whose loss equals one
 process's on the whole batch within rtol 1e-4 / atol 1e-5
 (graft_entry.LOSS_RTOL, the two-rank tolerance)."""
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import contextlib
 import dataclasses
 import io

@@ -21,6 +21,8 @@ A missing key, a wrong shape and an unknown format version raise, naming
 it.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import json
 import os
 import sys

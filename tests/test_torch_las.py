@@ -7,6 +7,8 @@ Tolerance rtol 1e-5 / atol 1e-5: float32 on both sides, sums in another
 order.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import dataclasses
 
 import jax

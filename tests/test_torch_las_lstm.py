@@ -23,6 +23,8 @@ loaded strictly into the port's model) and the same inputs through both.
   fan_out 4U and zero biases.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import math
 import os
 

@@ -6,6 +6,8 @@ the port's train under it the same way); and the port's supervisor
 (tools/train_supervised.sh, its backoff sleep removed) retries an 18 from
 a two-rank launch once and stops on a 1."""
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import os
 import subprocess
 import sys
@@ -19,7 +21,7 @@ RANK = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 LAUNCH = [sys.executable, "-m",
           "automatic_speech_recognition_torch.parallel.launch",
           "--nproc_per_node", "2", "--monitor_interval", "0.1", RANK]
-ENV = {**os.environ, "OMP_NUM_THREADS": "1",
+ENV = {**os.environ,
        "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
 
 

@@ -11,6 +11,8 @@ from its own init (the JAX distributions, not JAX's draws), so the runs
 are the same experiment, not the same numbers.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import numpy as np
 import torch
 

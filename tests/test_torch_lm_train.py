@@ -16,6 +16,8 @@ Tolerances:
 Dropout draws from a torch.Generator, not JAX keys: held to its effect.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import json
 import os
 

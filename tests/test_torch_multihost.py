@@ -32,6 +32,8 @@ The exit rule itself, with torch.distributed monkeypatched: a failing
 exit with a group up aborts the group and exits at once; a clean exit
 destroys it."""
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import json
 import os
 import subprocess
@@ -150,7 +152,7 @@ def _env(site, **extra):
     path = os.environ.get("PYTHONPATH")
     env = {k: v for k, v in os.environ.items()
            if k not in distributed.TORCHRUN_ENV + launch.HOSTS_ENV}
-    return {**env, "OMP_NUM_THREADS": "1",
+    return {**env,
             "PYTHONPATH": os.pathsep.join(
                 [site, REPO] + ([path] if path else [])), **extra}
 

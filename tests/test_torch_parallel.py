@@ -8,6 +8,8 @@ arithmetic on fewer rows); the test and decode entry points and the
 Recognizer give the same hypotheses over `--device cpu,cpu` as over
 `--device cpu`.  Plain 'cuda' is every visible GPU."""
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import os
 
 import numpy as np

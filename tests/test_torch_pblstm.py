@@ -13,6 +13,8 @@ atol 1e-5 (no BN: every bias gets a real gradient); beam scores rtol
 1e-4 with rank-0 tokens equal.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import jax
 import numpy as np
 import pytest

@@ -6,6 +6,8 @@ supervisor tools/train_supervised.sh (retry 17, 18 and 137, stop on
 anything else), mirroring tests/test_aux_subsystems.py's checks of the
 JAX package's."""
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import os
 import re
 import runpy
@@ -105,7 +107,7 @@ def test_transient_error_on_one_torchrun_rank_ends_every_rank(tmp_path):
     d = str(tmp_path)
     cli_shards(d, np.random.default_rng(0))
     (tmp_path / "inject.py").write_text(_INJECT)
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
+    env = {**os.environ,
            "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
     proc = subprocess.run(
         [sys.executable, "-m",

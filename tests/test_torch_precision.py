@@ -14,6 +14,8 @@ Tolerances, stated with their reasons:
 - the host feed: bit-equal.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import glob
 import os
 

@@ -11,6 +11,8 @@ the limits are tests/test_quantize.py's: 2e-2 relative for a matmul, 5e-2
 absolute after tanh, greedy tokens equal on > 97 % of steps.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import os
 
 import jax

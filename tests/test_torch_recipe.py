@@ -15,6 +15,8 @@ Held to the JAX side:
   port's test (greedy ids compared exactly).
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import filecmp
 import glob
 import os

@@ -12,6 +12,8 @@ corpus with the same overrides and compares the two artifact trees: file
 names, feature shapes, shard counts and records, the vocabulary.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import json
 import os
 import subprocess

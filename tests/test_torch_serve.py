@@ -3,6 +3,8 @@ the CPU over a real localhost socket: the round trip of
 tests/test_serving.py::test_http_server_round_trip through serve.main
 (port 0, the server in a thread, shut down in every case)."""
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import json
 import queue
 import threading

@@ -6,6 +6,8 @@ package's extract_features_cfg + eval_forward + convert_idx_to_string,
 which must give identical text.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import threading
 import time
 import types

@@ -13,6 +13,8 @@ own code: the host half of ops/augmentation.py and
 models/char_rnn.BatchGenerator.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import ast
 import dataclasses
 from pathlib import Path

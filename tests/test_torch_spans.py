@@ -4,6 +4,8 @@ without a profiler, coarse spans as profiler ranges on the documented
 clock, one train step's and one greedy Recognizer call's spans, and the
 beam's per-step scores rebuilding its final scores."""
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import json
 import threading
 import time

@@ -33,6 +33,8 @@ in this process.
   and the Recognizer so.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import json
 import os
 

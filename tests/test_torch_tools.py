@@ -14,6 +14,8 @@ against the repository's tools/ on the same inputs:
   script's, but for --steps_per_dispatch 16, which the port refuses.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import filecmp
 import json
 import os

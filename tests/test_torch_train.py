@@ -23,6 +23,8 @@ coin) draw from a torch.Generator, not from JAX keys, so they are checked
 by their statistics with fixed seeds.
 """
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

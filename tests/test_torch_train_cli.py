@@ -3,6 +3,8 @@ automatic_speech_recognition_torch/train.py, on the CPU: two tiny
 raw-audio shards, 4 steps with the frontend inside the step, an epoch
 checkpoint, then a resume that continues at step 5."""
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import json
 import os
 

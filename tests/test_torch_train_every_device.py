@@ -13,6 +13,8 @@ is launched again; a --num_partitions that does not divide the devices
 raises; a list of GPUs reaches the ranks as CUDA_VISIBLE_DEVICES, each
 rank pinned to cuda:LOCAL_RANK of it."""
 
+import torch_cpu  # noqa: F401  one CPU thread a process (keep it first)
+
 import json
 import os
 import subprocess
@@ -71,7 +73,7 @@ def _flags(d, run, *extra):
 
 def _env(**extra):
     path = os.environ.get("PYTHONPATH")
-    return {**os.environ, "OMP_NUM_THREADS": "1",
+    return {**os.environ,
             "PYTHONPATH": REPO + (os.pathsep + path if path else ""),
             **extra}
 
